@@ -86,7 +86,7 @@ STILL_SWEEPS = [
                                quantizer="colorvq", entropy="zlib"), ""),
     # Huffman.ipynb / CBAHC.ipynb / CBAAC.ipynb entropy backends
     ("dct-huffman", CodecConfig(entropy="huffman"), ""),
-    ("dct-ihuff", CodecConfig(entropy="ihuff"), "TPU-native interleaved"),
+    ("dct-ihuff", CodecConfig(entropy="ihuff"), "device interleaved"),
     ("dct-cbaac", CodecConfig(entropy="cbaac", context_order=1), ""),
     ("dct-cbahc", CodecConfig(entropy="cbahc", context_order=1,
                               qss=64), "slow by design (per-symbol rebuild)"),

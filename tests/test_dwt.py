@@ -254,7 +254,7 @@ class TestDWTDeviceEntropy:
         sizes = [700, 3000, 12000]
         bands = [jnp.asarray(rng.integers(0, 256, (n,), np.uint8))
                  for n in sizes]
-        sg, l = dd.grid_dims(sizes, tpu=False)
+        sg, l = dd.grid_dims(sizes)
         lanes = dd.bands_to_grid(bands, sg, l)
         assert lanes.shape == (len(sizes) * sg, l)
         back = dd.grid_to_bands(lanes, sizes, sg)

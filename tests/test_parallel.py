@@ -226,33 +226,37 @@ class TestShardedVQ:
         np.testing.assert_array_equal(lab1, lab8)
 
 
-class TestColorFusedBatchPath:
-    """Pin the r5 color-fused BatchCodec branch wiring in CPU interpret
-    mode (the platform gate otherwise leaves it chip-only)."""
+class TestBatchCodecXLA:
+    """BatchCodec's sharded transform is plain XLA on every platform: its
+    stored planes and reconstructions equal the per-frame Codec's."""
 
     @pytest.mark.parametrize("color", ["ycocg", "ycrcb", "cdct"])
-    def test_fused_matches_xla(self, color):
-        from vcf_tpu.parallel import mesh as mesh_mod
+    def test_matches_per_frame_codec(self, color):
+        from vcf_tpu import Codec
+        from vcf_tpu.io import test_image
         from vcf_tpu.parallel.mesh import BatchCodec, make_mesh
 
-        from vcf_tpu.io import test_image
+        frames = np.stack([test_image(64, 128, seed=i) for i in range(2)])
+        cfg = CodecConfig(color=color, entropy="zlib")
+        bc = BatchCodec(cfg, make_mesh(2))
+        planes = bc.encode_planes(frames)
+        rec = bc.decode_planes(planes)
+        still = Codec(cfg)
+        for i in range(2):
+            cs = still.encode(frames[i])
+            payload, _ = still.entropy_codec.encode(planes[i])
+            assert payload == cs.payload, f"{color} frame {i}"
+            np.testing.assert_array_equal(rec[i], still.decode(cs))
 
-        frames = np.stack([
-            np.asarray(test_image(64, 128, seed=i)) for i in range(2)
-        ])
-        cfg = CodecConfig(color=color)
-        mesh1 = make_mesh(1)
-        bx = BatchCodec(cfg.replace(use_pallas=False), mesh1)
-        px = np.asarray(bx.encode_planes(frames))
-        rx = np.asarray(bx.decode_planes(px))
-        mesh_mod._FORCE_FUSED_INTERPRET = True
-        try:
-            bf = BatchCodec(cfg, mesh1)
-            pf = np.asarray(bf.encode_planes(frames))
-            rf = np.asarray(bf.decode_planes(pf))
-        finally:
-            mesh_mod._FORCE_FUSED_INTERPRET = False
-        # CPU interpret is bit-exact on encode; decode rounds identically
-        np.testing.assert_array_equal(pf, px)
-        d = np.abs(rf.astype(np.int32) - rx.astype(np.int32))
-        assert d.max() <= 1 and (d != 0).mean() < 1e-3
+    def test_saturating_indexes_clamp(self):
+        """A white frame at qss=1 saturates the DC index: the batch path
+        clamps it to 255 like the per-frame Codec instead of wrapping."""
+        from vcf_tpu import Codec
+        from vcf_tpu.parallel.mesh import BatchCodec, make_mesh
+
+        frames = np.full((2, 16, 16, 3), 255, np.uint8)
+        cfg = CodecConfig(qss=1, entropy="zlib")
+        planes = BatchCodec(cfg, make_mesh(1)).encode_planes(frames)
+        assert planes.max() == 255
+        payload, _ = Codec(cfg).entropy_codec.encode(planes[0])
+        assert payload == Codec(cfg).encode(frames[0]).payload

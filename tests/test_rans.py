@@ -627,3 +627,211 @@ def test_cgrans_through_codec(img_small=None):
     cs = c.encode(img)
     rec = Codec(cfg).decode(CodeStream.from_bytes(cs.to_bytes()))
     assert rec.shape == img.shape
+
+
+class TestFormerKernelShapes:
+    """Lane grids that tile into 128-lane groups with L*S % 32768 == 0
+    (the shapes that once took platform-specific kernels) run the same
+    path as every other shape: exact round trips, and the bytes of the
+    NumPy reference."""
+
+    @staticmethod
+    def _planes(shape, seed):
+        rng = np.random.default_rng(seed)
+        mag = rng.geometric(0.45, shape) - 1
+        return np.clip(128 + mag * rng.choice([-1, 1], shape), 0,
+                       255).astype(np.uint8)
+
+    def test_rans_codec(self):
+        flat = self._planes((1024 * 512,), 1)
+        codec = rans.RANSCodec()
+        payload, side = codec.encode(flat)
+        np.testing.assert_array_equal(codec.decode(payload, side), flat)
+        syms = flat.reshape(512, 1024).T
+        freqs = rans.quantize_freqs(np.bincount(flat, minlength=256))
+        words, _ = rans.np_encode(syms, freqs)
+        assert payload == words.astype("<u2").tobytes()
+
+    def test_grans_codec(self):
+        planes = self._planes((1, 256, 512, 32), 2)
+        codec = rans.GroupedRANSCodec()
+        payload, side = codec.encode(planes)
+        np.testing.assert_array_equal(codec.decode(payload, side), planes)
+        lanes = np.asarray(rans.subband_lanes(jnp.asarray(planes), 8, 8192))
+        fg, _ = rans.freqs_from_counts(np.asarray(
+            rans.group_histograms(jnp.asarray(lanes), 64)))
+        words, _ = rans.np_encode_grouped(lanes, fg)
+        assert payload == words.astype("<u2").tobytes()
+
+    def test_cgrans_codec(self):
+        planes = self._planes((1, 256, 512, 32), 3)
+        codec = rans.CtxRANSCodec()
+        payload, side = codec.encode(planes)
+        assert side["cgrans_model"][0] == 2      # order-1, not delegated
+        np.testing.assert_array_equal(codec.decode(payload, side), planes)
+        lanes = np.asarray(
+            rans.subband_lanes_ctx(jnp.asarray(planes), 8, 8192))
+        fgc, _ = rans.ctx_freqs_from_counts(np.asarray(
+            rans.ctx_group_histograms(jnp.asarray(lanes), 64)))
+        words, _ = rans.np_encode_ctx(lanes, fgc)
+        assert payload == words.astype("<u2").tobytes()
+
+    def test_dwt_grid(self):
+        from vcf_tpu.entropy import dwt_device as dd
+
+        lanes = self._planes((3 * 128, 256), 4)
+        fg, cg = dd.train_tables(jnp.asarray(lanes), 3)
+        words, n, states, counts = dd.encode_grid(jnp.asarray(lanes), fg, cg)
+        wn, sn = rans.np_encode_grouped(lanes, fg)
+        np.testing.assert_array_equal(words, wn)
+        np.testing.assert_array_equal(states, sn)
+        back = dd.decode_grid(words, states, fg, cg, 256)
+        np.testing.assert_array_equal(np.asarray(back), lanes)
+
+
+def _walk_repair_reference(counts, k, min_all):
+    """quantize_freqs as first written: the sum is repaired one visit at
+    a time, walking the entries cyclically, largest first."""
+    total = 1 << k
+    counts = counts.astype(np.float64)
+    if counts.sum() == 0:
+        counts[:] = 1.0
+    present = np.ones(counts.size, bool) if min_all else counts > 0
+    f = np.zeros(counts.size, np.int64)
+    f[present] = np.maximum(
+        1, np.round(counts[present] / counts.sum() * total).astype(np.int64))
+    diff = total - int(f.sum())
+    order = np.argsort(-f, kind="stable")
+    i = 0
+    while diff != 0:
+        s = order[i % counts.size]
+        if f[s] > 1 or diff > 0:
+            step = 1 if diff > 0 else -1
+            f[s] += step
+            diff -= step
+        i += 1
+    return f.astype(np.uint32)
+
+
+@pytest.mark.parametrize("min_all", [False, True])
+@pytest.mark.parametrize("kind", ["empty", "one_symbol", "few_symbols",
+                                  "geometric", "uniform_small", "sparse_large",
+                                  "alphabet_16", "alphabet_512"])
+def test_quantize_freqs_matches_walk_repair(kind, min_all):
+    rng = np.random.default_rng(len(kind) + 100 * min_all)
+    for _ in range(20):
+        if kind == "empty":
+            c = np.zeros(256, np.int64)
+        elif kind == "one_symbol":
+            c = np.zeros(256, np.int64)
+            c[rng.integers(256)] = rng.integers(1, 10 ** 7)
+        elif kind == "few_symbols":
+            c = np.zeros(256, np.int64)
+            c[rng.integers(0, 256, 3)] = rng.integers(1, 10 ** 6, 3)
+        elif kind == "geometric":
+            c = np.bincount(np.clip(rng.geometric(
+                rng.uniform(0.05, 0.99), 10 ** 5), 0, 255), minlength=256)
+        elif kind == "uniform_small":
+            c = rng.integers(0, 5, 256)
+        elif kind == "sparse_large":
+            c = rng.integers(0, 10 ** 6, 256) * (rng.random(256) < 0.1)
+        else:
+            c = rng.integers(0, 3, int(kind.split("_")[1]))
+        for k in (12, 15):
+            got = rans.quantize_freqs(c, k, min_all)
+            np.testing.assert_array_equal(
+                got, _walk_repair_reference(c, k, min_all))
+            assert int(got.sum()) == 1 << k
+
+
+def _np_encode_grouped_loop(syms, freqs_g):
+    """The scalar-loop form of np_encode_grouped (one lane at a time,
+    lanes descending within a step, words reversed at the end)."""
+    s_streams, l = syms.shape
+    sg = s_streams // freqs_g.shape[0]
+    cums = np.concatenate([np.zeros((freqs_g.shape[0], 1), np.int64),
+                           np.cumsum(freqs_g, axis=1)[:, :255]], axis=1)
+    x = [rans.RANS_L] * s_streams
+    emitted = []
+    for t in range(l - 1, -1, -1):
+        for s in range(s_streams - 1, -1, -1):
+            v = int(syms[s, t])
+            f, c = int(freqs_g[s // sg, v]), int(cums[s // sg, v])
+            if x[s] >= f * ((rans.RANS_L << 16) >> rans.K_PROB):
+                emitted.append(x[s] & 0xFFFF)
+                x[s] >>= 16
+            x[s] = ((x[s] // f) << rans.K_PROB) + x[s] % f + c
+    return np.array(emitted[::-1], np.uint16), np.array(x, np.uint32)
+
+
+def _np_encode_ctx_loop(syms, freqs_gc):
+    s_streams, l = syms.shape
+    g, n_ctx = freqs_gc.shape[:2]
+    sg = s_streams // g
+    cums = np.concatenate([np.zeros((g, n_ctx, 1), np.int64),
+                           np.cumsum(freqs_gc, axis=2)[:, :, :255]], axis=2)
+    x = [rans.RANS_L] * s_streams
+    emitted = []
+    for t in range(l - 1, -1, -1):
+        for s in range(s_streams - 1, -1, -1):
+            d = abs(int(syms[s, t - 1]) - 128) if t else 0
+            c = sum(d >= b for b in rans.CTX_BOUNDS[n_ctx]) if t else 0
+            v = int(syms[s, t])
+            f = int(freqs_gc[s // sg, c, v])
+            if (x[s] >> (32 - rans.K_PROB)) >= f:
+                emitted.append(x[s] & 0xFFFF)
+                x[s] >>= 16
+            x[s] = ((x[s] // f) << rans.K_PROB) + x[s] % f \
+                + int(cums[s // sg, c, v])
+    return np.array(emitted[::-1], np.uint16), np.array(x, np.uint32)
+
+
+def _np_decode_grouped_loop(words, states, freqs_g, s_streams, l):
+    sg = s_streams // freqs_g.shape[0]
+    cums = np.concatenate([np.zeros((freqs_g.shape[0], 1), np.int64),
+                           np.cumsum(freqs_g, axis=1)[:, :255]], axis=1)
+    x = [int(v) for v in states]
+    out = np.zeros((s_streams, l), np.uint8)
+    ptr = 0
+    for t in range(l):
+        for s in range(s_streams):
+            grp = s // sg
+            slot = x[s] & rans.MASK
+            v = int(np.searchsorted(cums[grp], slot, side="right") - 1)
+            while freqs_g[grp, v] == 0:          # zero-width symbols
+                v -= 1
+            out[s, t] = v
+            x[s] = int(freqs_g[grp, v]) * (x[s] >> rans.K_PROB) + slot \
+                - int(cums[grp, v])
+            if x[s] < rans.RANS_L:
+                x[s] = (x[s] << 16) | int(words[ptr])
+                ptr += 1
+    return out
+
+
+@pytest.mark.parametrize("g,s_streams,l,p", [
+    (1, 8, 33, 0.3), (2, 16, 20, 0.1), (4, 32, 9, 0.6), (8, 64, 5, 0.9)])
+def test_vector_references_match_scalar_loops(g, s_streams, l, p):
+    """The NumPy references run one vector step over all lanes; the
+    scalar loops they replaced must give the same words and states."""
+    rng = np.random.default_rng(g * 31 + l)
+    syms = np.clip(128 + (rng.geometric(p, (s_streams, l)) - 1)
+                   * rng.choice([-1, 1], (s_streams, l)), 0, 255
+                   ).astype(np.uint8)
+    fg, _ = rans.freqs_from_counts(np.stack(
+        [np.bincount(syms[i * s_streams // g:(i + 1) * s_streams // g]
+                     .ravel(), minlength=256) for i in range(g)]))
+    words, states = rans.np_encode_grouped(syms, fg)
+    w0, s0 = _np_encode_grouped_loop(syms, fg.astype(np.int64))
+    np.testing.assert_array_equal(words, w0)
+    np.testing.assert_array_equal(states, s0)
+    np.testing.assert_array_equal(
+        rans.np_decode_grouped(words, states, fg, s_streams, l),
+        _np_decode_grouped_loop(words, states, fg.astype(np.int64),
+                                s_streams, l))
+    fgc, _ = rans.ctx_freqs_from_counts(np.asarray(
+        rans.ctx_group_histograms(jnp.asarray(syms), g)))
+    wc, sc = rans.np_encode_ctx(syms, fgc)
+    wc0, sc0 = _np_encode_ctx_loop(syms, fgc.astype(np.int64))
+    np.testing.assert_array_equal(wc, wc0)
+    np.testing.assert_array_equal(sc, sc0)

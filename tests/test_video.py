@@ -219,54 +219,6 @@ class TestBatchedDeviceEntropy:
         assert b_bytes < 2.0 * z_bytes
 
 
-class TestPlanarGridGOP:
-    """The planar + subband-grid closed loop (r4 device path) must
-    reproduce the frame-layout GOP loop's reconstruction."""
-
-    def _codec(self):
-        vcfg = VideoConfig(mode="ipp", n_frames=4, gop_size=4,
-                           me_block=16, search_range=4)
-        ccfg = CodecConfig(qss=32, entropy="zlib")
-        return video.get(vcfg, ccfg)
-
-    def test_planar_roundtrip_and_parity(self):
-        codec = self._codec()
-        frames = make_video(4, 64, 128, seed=9)
-        enc_g, dec_g = codec._build_planar_gop(interpret=True)
-        planes, mvs = enc_g(jnp.asarray(frames))
-        assert planes.shape == (4, 3, 64, 128) and planes.dtype == jnp.uint8
-        recs = np.asarray(dec_g(planes, mvs))
-        # decode mirrors encode's internal reconstruction exactly
-        rec_u8 = np.clip(np.round(recs), 0, 255).astype(np.uint8)
-        rec_frames = rec_u8.transpose(0, 2, 3, 1)
-        err_p = metrics.rmse(frames, rec_frames)
-        # frame-layout path on the same clip
-        planes_f, mvs_f = codec._gop_encode_batch(
-            jnp.asarray(frames)[None])
-        recs_f = np.asarray(codec._gop_decode_batch(planes_f, mvs_f))[0]
-        err_f = metrics.rmse(frames, np.clip(recs_f, 0, 255).astype(np.uint8))
-        # same algorithm, same quantizer: quality must match closely
-        # (float op order differs between the XLA and kernel DCTs, so a
-        # handful of knife-edge coefficients may quantize differently)
-        assert abs(err_p - err_f) < 0.3, (err_p, err_f)
-        assert err_p < 14.0
-
-    def test_grid_planes_feed_grid_lanes(self):
-        from vcf_tpu.entropy import rans
-        from vcf_tpu.ops.pallas.dct_kernel import _chunk_w
-
-        codec = self._codec()
-        frames = make_video(4, 64, 128, seed=10)
-        enc_g, _ = codec._build_planar_gop(interpret=True)
-        planes, _ = enc_g(jnp.asarray(frames))
-        cw = _chunk_w(128, 8)
-        s = 64 * 8
-        lanes = rans.grid_lanes(planes, 8, s, rows=32, cw=cw)
-        back = np.asarray(rans.grid_unlanes(lanes, 8, planes.shape,
-                                            rows=32, cw=cw))
-        np.testing.assert_array_equal(back, np.asarray(planes))
-
-
 class TestIIILloydMax:
     def test_roundtrip_per_frame_entropy(self):
         """III now batches lloydmax through BatchCodec (per-frame

@@ -1,7 +1,7 @@
-"""vcf_tpu — a TPU-native visual coding framework.
+"""vcf_tpu — a visual coding framework on the accelerator, in JAX.
 
 A from-scratch re-design of the capabilities of Sistemas-Multimedia/VCF
-(reference: /root/reference) for TPU hardware:
+(reference: /root/reference) for an accelerator (an NVIDIA GPU):
 
 * all pixel math (color transforms, block transforms, quantization,
   motion search) runs on device as jittable JAX / Pallas code;

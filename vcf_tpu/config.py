@@ -84,9 +84,6 @@ class CodecConfig:
                                  # (rate priority, ~-19% vs order-0)
     zlib_level: int = 6
 
-    # ---- execution knobs -------------------------------------------------
-    use_pallas: bool = True      # fused Pallas kernels where available (TPU only)
-
     def __post_init__(self):
         def _check(value, allowed, what):
             if value not in allowed:

@@ -10,12 +10,12 @@ ONE logical dispatch each way:
 * Every subband becomes one rANS GROUP with its own probability table
   (the per-band statistics the reference's per-band streams capture).
   The LL band is 16-bit and becomes TWO groups (hi/lo byte planes).
-* All groups get the same lane count `sg` (a 128-multiple so the
-  Pallas grid kernels apply); short bands pad with the deadzone zero
-  symbol, whose cost is ~0 bits/symbol under the band's own table.
-* On TPU the encode/decode scans run in the Pallas whole-scan kernels
-  (ops/pallas/rans_{encode,decode}.py); elsewhere the XLA grouped scan
-  produces the identical stream.
+* All groups get the same lane count `sg` (a power of two); short
+  bands pad with the deadzone zero symbol, whose cost is ~0
+  bits/symbol under the band's own table.
+* The encode runs `rans.encode_grouped` (the encode-scan kernel where
+  `ops.pallas.use_encode_kernel` admits the shape, the XLA scan
+  elsewhere: identical streams); the decode is the XLA grouped scan.
 
 Wire format (sidecar ``gdwt_model``): u8 version | u32 G | u32 sg |
 u32 L | u32 n_words | u32 qss | states (S u32) | u32 counts_zlib_len |
@@ -25,6 +25,7 @@ shapes ride in the pipeline's meta JSON.
 
 from __future__ import annotations
 
+import functools
 import struct
 import zlib
 from typing import List, Sequence, Tuple
@@ -39,27 +40,20 @@ from vcf_tpu.ops import hist as hist_ops
 K_PROB = rans_mod.K_PROB
 
 
-def grid_dims(band_sizes: Sequence[int], tpu: bool,
+def grid_dims(band_sizes: Sequence[int],
               syms_per_lane: int = 512) -> Tuple[int, int]:
     """(sg, L) for the uniform lane grid.  Lane count targets
     `syms_per_lane` symbols per lane over the whole image (512 keeps
     the 4-byte final-state sidecar under ~0.07 bits/symbol, same rule
-    as RANSCodec._pick_streams; 256 halves the scan length for ~2x
-    throughput at ~+0.07 bpp — the batch-bench operating point); on
-    TPU sg rounds to a 128-multiple so the Pallas grid kernels apply,
-    and L rounds so the packed stitch chunks divide
-    (sg * L % 32768 == 0)."""
+    as RANSCodec._pick_streams; 256 halves the scan length at ~+0.07
+    bpp); sg is a power of two and L a multiple of 4."""
     n_total = sum(band_sizes)
     n_max = max(band_sizes)
     g = len(band_sizes)
     target = max(8, n_total // syms_per_lane // g)
-    if tpu and target >= 96:
-        sg = -(-target // 128) * 128
-    else:
-        sg = 1 << int(np.floor(np.log2(target)))
+    sg = 1 << int(np.floor(np.log2(target)))
     l = -(-n_max // sg)
-    step = 256 if (tpu and sg % 128 == 0) else 4
-    l = -(-l // step) * step
+    l = -(-l // 4) * 4
     return sg, l
 
 
@@ -96,16 +90,18 @@ def grid_to_bands(lanes: jnp.ndarray, sizes: Sequence[int],
     return out
 
 
-def train_tables(lanes: jnp.ndarray, g: int,
-                 sg: int) -> Tuple[np.ndarray, np.ndarray]:
+@functools.partial(jax.jit, static_argnames=("g",))
+def _group_counts(lanes: jnp.ndarray, g: int) -> jnp.ndarray:
+    return jax.vmap(lambda row: hist_ops.histogram(row, 256))(
+        lanes.reshape(g, -1).astype(jnp.int32))
+
+
+def train_tables(lanes: jnp.ndarray,
+                 g: int) -> Tuple[np.ndarray, np.ndarray]:
     """Per-group quantized freq/cum tables from the data itself (the
     scatter-free device histogram; quantize_freqs on host — the tables
     are codestream side info either way)."""
-    counts = jax.jit(
-        lambda x: jax.vmap(lambda row: hist_ops.histogram(row, 256))(
-            x.reshape(g, -1).astype(jnp.int32))
-    )(lanes)
-    counts_h = np.asarray(counts)
+    counts_h = np.asarray(_group_counts(lanes, g))
     fg = np.stack([
         rans_mod.quantize_freqs(counts_h[i], min_all=True)
         for i in range(g)
@@ -116,75 +112,24 @@ def train_tables(lanes: jnp.ndarray, g: int,
     return fg, cg
 
 
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-def encode_grid(lanes: jnp.ndarray, fg: np.ndarray, cg: np.ndarray,
-                sg: int) -> Tuple[np.ndarray, int, np.ndarray, np.ndarray]:
-    """(S, L) u8 lanes -> (words u16, n_words, states u32, counts i32).
-    Pallas whole-scan kernel + packed stitch on TPU; XLA grouped scan
-    elsewhere (bit-identical streams)."""
-    s, l = lanes.shape
-    fg_j, cg_j = jnp.asarray(fg), jnp.asarray(cg)
-    unroll = next(u for u in (4, 3, 2, 1) if l % u == 0)
-    if _use_pallas() and sg % 128 == 0 and (sg * l) % 32768 == 0:
-        from vcf_tpu.ops.pallas import rans_encode as re_
-
-        @jax.jit
-        def run(lanes):
-            le, st = re_.pallas_encode_grouped_raw(
-                lanes, fg_j, cg_j, unroll=unroll, sg=sg)
-            words, n_words, counts = re_.finish_stream_pallas(
-                le, chunk=32768, radix=2)
-            return words, n_words, st, counts
-
-        words, n_words, st, counts = run(lanes)
-    else:
-        @jax.jit
-        def run(lanes):
-            return rans_mod.jax_encode_grouped(
-                lanes, fg_j, cg_j, unroll=unroll, with_counts=True)
-
-        words, n_words, st, counts = run(lanes)
+def encode_grid(lanes: jnp.ndarray, fg: np.ndarray, cg: np.ndarray
+                ) -> Tuple[np.ndarray, int, np.ndarray, np.ndarray]:
+    """(S, L) u8 lanes -> (words u16, n_words, states u32, counts i32)."""
+    words, n_words, st, counts = rans_mod.encode_grouped(
+        lanes, jnp.asarray(fg), jnp.asarray(cg))
     n = int(n_words)
-    return (np.asarray(words[:n]), n,
+    return (rans_mod.words_to_host(words, n), n,
             np.asarray(st), np.asarray(counts, np.int64))
 
 
-def decode_grid(words: np.ndarray, states: np.ndarray,
-                counts: np.ndarray, fg: np.ndarray, cg: np.ndarray,
-                g: int, sg: int, l: int) -> jnp.ndarray:
+def decode_grid(words: np.ndarray, states: np.ndarray, fg: np.ndarray,
+                cg: np.ndarray, l: int) -> jnp.ndarray:
     """Inverse of encode_grid -> (S, L) u8 lanes on device."""
-    fg_j, cg_j = jnp.asarray(fg), jnp.asarray(cg)
-    st_j = jnp.asarray(states)
     unroll = next(u for u in (4, 3, 2, 1) if l % u == 0)
-    if _use_pallas() and sg % 128 == 0 and (sg * l) % 32768 == 0:
-        from vcf_tpu.ops.pallas import rans_decode as rd
-
-        cap = sg * max(1, -(-int(counts.max()) // sg)) if counts.size else sg
-        cap = min(cap, g * sg)
-        wpad = jnp.concatenate([
-            jnp.asarray(words),
-            jnp.zeros((cap + g * sg + 16,), jnp.uint16)])
-        cts = jnp.asarray(counts.astype(np.int32))
-
-        @jax.jit
-        def run(wp, cts, st):
-            win = rd.build_windows(wp, cts, cap)
-            return rd.pallas_decode_grouped(
-                win, st, fg_j, cg_j, l, cap, unroll=unroll, sg=sg)
-
-        return run(wpad, cts, st_j)
-    wpad = jnp.concatenate([
-        jnp.asarray(words), jnp.zeros((g * sg + 16,), jnp.uint16)])
-
-    @jax.jit
-    def run(wp, st):
-        return rans_mod.jax_decode_hier(
-            wp, jnp.int32(0), st, fg_j, cg_j, l, unroll=unroll)
-
-    return run(wpad, st_j)
+    wpad = jnp.asarray(rans_mod.pad_words(words, states.size + 16))
+    return rans_mod.jax_decode_hier(
+        wpad, jnp.int32(0), jnp.asarray(states), jnp.asarray(fg),
+        jnp.asarray(cg), l, unroll=unroll)
 
 
 # ---------------------------------------------------------------------------
@@ -194,66 +139,27 @@ def decode_grid(words: np.ndarray, states: np.ndarray,
 # order-0 grans ~0.9 bpp above zlib on DWT detail bands.
 # ---------------------------------------------------------------------------
 
-def train_ctx_tables(lanes: jnp.ndarray, g: int, sg: int,
+def train_ctx_tables(lanes: jnp.ndarray, g: int,
                      n_ctx: int) -> Tuple[np.ndarray, np.ndarray]:
     counts = np.asarray(rans_mod.ctx_group_histograms(lanes, g, n_ctx))
     return rans_mod.ctx_freqs_from_counts(counts)
 
 
-def encode_grid_ctx(lanes: jnp.ndarray, fgc: np.ndarray, cgc: np.ndarray,
-                    sg: int):
+def encode_grid_ctx(lanes: jnp.ndarray, fgc: np.ndarray, cgc: np.ndarray):
     """(S, L) u8 lanes + (G, n_ctx, 256) tables -> same wire tuple as
-    encode_grid, coded with the order-1 context kernels/scan."""
-    s, l = lanes.shape
-    fj, cj = jnp.asarray(fgc), jnp.asarray(cgc)
-    unroll = next(u for u in (4, 3, 2, 1) if l % u == 0)
-    if _use_pallas() and sg % 128 == 0 and (sg * l) % 32768 == 0:
-        from vcf_tpu.ops.pallas import rans_ctx as rc
-        from vcf_tpu.ops.pallas import rans_encode as re_
-
-        @jax.jit
-        def run(lanes):
-            le, st = rc.pallas_encode_ctx_raw_u8(
-                lanes, fj, cj, unroll=unroll, sg=sg)
-            words, n_words, counts = re_.finish_stream_pallas(
-                le, chunk=32768, radix=2)
-            return words, n_words, st, counts
-
-        words, n_words, st, counts = run(lanes)
-    else:
-        words, n_words, st, counts = rans_mod.jax_encode_ctx(lanes, fj, cj)
+    encode_grid, coded with the order-1 context scan."""
+    words, n_words, st, counts = rans_mod.jax_encode_ctx(
+        lanes, jnp.asarray(fgc), jnp.asarray(cgc))
     n = int(n_words)
-    return (np.asarray(words[:n]), n, np.asarray(st),
+    return (rans_mod.words_to_host(words, n), n, np.asarray(st),
             np.asarray(counts, np.int64))
 
 
-def decode_grid_ctx(words: np.ndarray, states: np.ndarray,
-                    counts: np.ndarray, fgc: np.ndarray, cgc: np.ndarray,
-                    g: int, sg: int, l: int) -> jnp.ndarray:
-    fj, cj = jnp.asarray(fgc), jnp.asarray(cgc)
-    st_j = jnp.asarray(states)
-    unroll = next(u for u in (4, 3, 2, 1) if l % u == 0)
-    if _use_pallas() and sg % 128 == 0 and (sg * l) % 32768 == 0:
-        from vcf_tpu.ops.pallas import rans_ctx as rc
-        from vcf_tpu.ops.pallas import rans_decode as rd
-
-        cap = sg * max(1, -(-int(counts.max()) // sg)) if counts.size else sg
-        cap = min(cap, g * sg)
-        wpad = jnp.concatenate([
-            jnp.asarray(words),
-            jnp.zeros((cap + g * sg + 16,), jnp.uint16)])
-        cts = jnp.asarray(counts.astype(np.int32))
-
-        @jax.jit
-        def run(wp, cts, st):
-            win = rd.build_windows(wp, cts, cap)
-            return rc.pallas_decode_ctx(
-                win, st, fj, cj, l, cap, unroll=unroll, sg=sg)
-
-        return run(wpad, cts, st_j)
-    wpad = jnp.concatenate([
-        jnp.asarray(words), jnp.zeros((g * sg + 16,), jnp.uint16)])
-    return rans_mod.jax_decode_ctx(wpad, st_j, fj, cj, l)
+def decode_grid_ctx(words: np.ndarray, states: np.ndarray, fgc: np.ndarray,
+                    cgc: np.ndarray, l: int) -> jnp.ndarray:
+    wpad = jnp.asarray(rans_mod.pad_words(words, states.size + 16))
+    return rans_mod.jax_decode_ctx(wpad, jnp.asarray(states),
+                                   jnp.asarray(fgc), jnp.asarray(cgc), l)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ code from symbol frequencies, emit a bitstream; the code table and the
 array shape ride as side information (the reference pickles the tree to
 `{fn}_huffman_tree.pkl.gz`, src/Huffman.py:48-50).
 
-TPU-era design instead of a pickled tree:
+Device-friendly design instead of a pickled tree:
 
 * *Canonical* codes — the sidecar stores only per-symbol code lengths
   (zlib-compressed); encoder and decoder rebuild identical codes.

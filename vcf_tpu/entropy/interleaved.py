@@ -2,8 +2,8 @@
 
 The reference's entropy stage is a host-sequential bitstream
 (src/Huffman.py); SURVEY §7.3 flags sequential entropy coding as the
-hard part of a TPU port and prescribes "many independent per-tile
-streams".  This module is that design, TPU-native:
+hard part of an accelerator port and prescribes "many independent
+per-tile streams".  This module is that design, on the device:
 
 * The symbol plane is split into S interleaved streams (row-major
   round-robin), each Huffman-coded independently with one shared
@@ -13,7 +13,7 @@ streams".  This module is that design, TPU-native:
   offsets, then an *output-centric* assembly — every output byte
   binary-searches (vmapped searchsorted) the sorted offsets for its
   first contributing symbol and ORs together the (<= 9) codes that
-  overlap it.  All MXU/VPU-friendly dense ops.
+  overlap it.  All dense vector ops.
 * **Decode** is a `lax.scan` over symbol positions, vectorized across
   all S streams: each step gathers a 32-bit window per stream, does a
   table lookup (single-level, code lengths capped at 14 bits), and
@@ -114,7 +114,7 @@ def encode_streams(syms: jnp.ndarray, codes: jnp.ndarray, lens: jnp.ndarray,
 # Device encode v2: gather/scatter-free scan emission.
 #
 # The v1 output-centric assembly above is gather-bound on backends with
-# slow XLA gathers (docs/PERF_NOTES.md).  v2 runs a lax.scan over symbol
+# slow XLA gathers.  v2 runs a lax.scan over symbol
 # positions, vectorized across streams, carrying a per-stream bit
 # accumulator and emitting <= 2 byte "slots" per step at *uniform*
 # positions (slot t of every stream) — pure elementwise work.  The
@@ -142,49 +142,6 @@ def lookup256(sym: jnp.ndarray, table: jnp.ndarray, chunk: int = 1 << 16):
 
     _, out = jax.lax.scan(body, None, x)
     return out.reshape(-1)[:n].reshape(shape)
-
-
-@functools.partial(jax.jit, static_argnames=("chunk",))
-def lookup_tables256(sym: jnp.ndarray, tables: jnp.ndarray, chunk: int = 1 << 16):
-    """Gather-free multi-table 256-entry lookup on the MXU.
-
-    out[i, k] = tables[sym[i], k] for sym any-shape uint8/int and
-    tables (256, K) with values exactly representable in f32 (< 2^24).
-
-    The symbol is split into nibbles: a 16-wide one-hot per half (32
-    compares/symbol instead of lookup256's 256), the low-nibble one-hot
-    picks a 16-column slice of each table with ONE (chunk, 16) @
-    (16, 16*K) matmul on the MXU, and the high-nibble one-hot reduces
-    the slice.  ~6x less VPU work than `lookup256`; measured ~4x
-    end-to-end on the v5e for the rANS encode table pass."""
-    k_tabs = tables.shape[1]
-    shape = sym.shape
-    flat = sym.reshape(-1).astype(jnp.int32)
-    n = flat.shape[0]
-    chunk = min(chunk, max(n, 1))
-    pad = (-n) % chunk
-    x = jnp.pad(flat, (0, pad)).reshape(-1, chunk)
-    nib = jnp.arange(16, dtype=jnp.int32)
-    # t_mat[lo, hi*K + k] = tables[16*hi + lo, k]
-    t_mat = (
-        tables.astype(jnp.float32)
-        .reshape(16, 16, k_tabs)      # (hi, lo, k)
-        .transpose(1, 0, 2)           # (lo, hi, k)
-        .reshape(16, 16 * k_tabs)
-    )
-
-    def body(_, row):
-        hi = row >> 4
-        lo = row & 15
-        oh_lo = (lo[:, None] == nib[None, :]).astype(jnp.float32)
-        oh_hi = (hi[:, None] == nib[None, :]).astype(jnp.float32)
-        sliced = jnp.dot(oh_lo, t_mat, precision=jax.lax.Precision.HIGHEST)
-        sliced = sliced.reshape(-1, 16, k_tabs)
-        val = jnp.sum(oh_hi[:, :, None] * sliced, axis=1)  # (chunk, K)
-        return _, val.astype(jnp.int32)
-
-    _, out = jax.lax.scan(body, None, x)
-    return out.reshape(-1, k_tabs)[:n].reshape(shape + (k_tabs,))
 
 
 def encode_streams_v2(syms: jnp.ndarray, codes: jnp.ndarray, lens: jnp.ndarray):

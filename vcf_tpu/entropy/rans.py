@@ -1,16 +1,15 @@
 """Interleaved rANS — entropy coding fully on device, gather-free.
 
 The reference's adaptive arithmetic coder (src/CBAAC.py) is inherently
-serial; SURVEY §7.3 prescribes many independent streams for TPU
-throughput.  This module implements *interleaved range asymmetric
+serial; SURVEY §7.3 prescribes many independent streams for
+accelerator throughput.  This module implements *interleaved range asymmetric
 numeral systems* (Duda's rANS with Giesen's interleaving): S streams
 share ONE word stream, because the decoder's renormalization schedule
 is state-driven — at each step the renormalizing streams consume the
 next words **in stream order**, so the device can fetch one contiguous
 chunk per step (`dynamic_slice`) and route it to the renormalizing
 lanes with a butterfly network (log2 S stages of shift+select).  No
-gathers, no scatters, no sorts — the exact op set that runs at line
-rate on this backend (docs/PERF_NOTES.md).
+gathers, no scatters, no sorts.
 
 Encoder: processes symbols in reverse (standard rANS), emitting words
 in reverse consumption order (reverse step, reverse stream rank) with a
@@ -75,18 +74,29 @@ def quantize_freqs(counts: np.ndarray, k: int = K_PROB,
     f = np.zeros(n_syms, np.int64)
     scaled = counts / counts.sum() * total
     f[present] = np.maximum(1, np.round(scaled[present]).astype(np.int64))
-    # repair the sum by walking the largest entries (deterministic order)
+    # repair the sum by walking the entries cyclically, largest first
+    # (deterministic order): each visit adds one while the sum is short,
+    # or takes one from an entry still > 1 while it is over
     diff = total - int(f.sum())
     order = np.argsort(-f, kind="stable")
-    i = 0
-    while diff != 0:
-        s = order[i % n_syms]
-        if f[s] > 1 or diff > 0:
-            step = 1 if diff > 0 else -1
-            if f[s] + step >= 1:
-                f[s] += step
-                diff -= step
-        i += 1
+    if diff > 0:
+        f[order] += diff // n_syms + (np.arange(n_syms) < diff % n_syms)
+    if diff < 0:
+        # k full cycles take min(f - 1, k) from each entry; the last,
+        # partial cycle one more from the first entries still > 1
+        e = order[f[order] > 1]
+        cap = f[e] - 1
+        lo, hi = 0, int(cap.max())
+        while lo < hi:          # most full cycles that fit in -diff
+            mid = (lo + hi + 1) // 2
+            if np.minimum(cap, mid).sum() <= -diff:
+                lo = mid
+            else:
+                hi = mid - 1
+        taken = np.minimum(cap, lo)
+        extra = cap > lo
+        extra &= np.cumsum(extra) <= -diff - taken.sum()
+        f[e] -= taken + extra
     return f.astype(np.uint32)
 
 
@@ -98,91 +108,66 @@ def np_encode(syms: np.ndarray, freqs: np.ndarray) -> Tuple[np.ndarray, np.ndarr
     """syms (S, L) -> (words uint16 (N,), final_states uint32 (S,)).
 
     Words are in decoder consumption order (forward)."""
-    s_streams, l = syms.shape
-    cum = np.concatenate(([0], np.cumsum(freqs)))[:256].astype(np.uint64)
-    f64 = freqs.astype(np.uint64)
-    x = np.full(s_streams, RANS_L, np.uint64)
-    emitted: List[int] = []  # reverse order
-    x_max_mul = (RANS_L << 16) >> K_PROB  # (b*L) >> k
-    for t in range(l - 1, -1, -1):
-        for s in range(s_streams - 1, -1, -1):
-            v = int(syms[s, t])
-            f = int(f64[v])
-            if x[s] >= f * x_max_mul:
-                emitted.append(int(x[s] & 0xFFFF))
-                x[s] >>= 16
-            x[s] = ((x[s] // f) << K_PROB) + (x[s] % f) + int(cum[v])
-    words = np.array(emitted[::-1], np.uint16)
-    return words, x.astype(np.uint32)
+    return np_encode_grouped(syms, np.asarray(freqs)[None])
 
 
 def np_decode(words: np.ndarray, states: np.ndarray, freqs: np.ndarray,
               s_streams: int, l: int) -> np.ndarray:
-    cum = np.concatenate(([0], np.cumsum(freqs)))[:256].astype(np.int64)
-    slot2sym = np.zeros(1 << K_PROB, np.int64)
-    for v in range(256):
-        slot2sym[cum[v] : cum[v] + int(freqs[v])] = v
-    x = states.astype(np.uint64).copy()
-    out = np.zeros((s_streams, l), np.uint8)
-    ptr = 0
-    for t in range(l):
-        for s in range(s_streams):
-            slot = int(x[s]) & MASK
-            v = int(slot2sym[slot])
-            out[s, t] = v
-            x[s] = int(freqs[v]) * (int(x[s]) >> K_PROB) + slot - int(cum[v])
-            if x[s] < RANS_L:
-                x[s] = (x[s] << 16) | int(words[ptr])
-                ptr += 1
-    return out
+    return np_decode_grouped(words, states, np.asarray(freqs)[None],
+                             s_streams, l)
+
+
+def _np_tables(freqs_g: np.ndarray):
+    """(G, 256) freqs -> (freqs, cums) as uint64 (G, 256)."""
+    f = np.asarray(freqs_g).astype(np.uint64)
+    c = np.concatenate([np.zeros((f.shape[0], 1), np.uint64),
+                        np.cumsum(f, axis=1)[:, :255]], axis=1)
+    return f, c
 
 
 def np_encode_grouped(syms: np.ndarray, freqs_g: np.ndarray):
-    """Grouped-lane NumPy reference: lane s uses table s // (S // G)."""
+    """Grouped-lane NumPy reference: lane s uses table s // (S // G).
+
+    rANS codes each lane's symbols in reverse; at every step the lanes
+    that renormalize emit their low 16 bits, and the decoder consumes a
+    step's words in lane order.  Lanes are independent, so each step is
+    one vector operation over all S lanes."""
     s_streams, l = syms.shape
-    g = freqs_g.shape[0]
-    sg = s_streams // g
-    cums = [np.concatenate(([0], np.cumsum(fq)))[:256].astype(np.uint64)
-            for fq in freqs_g]
-    f64 = freqs_g.astype(np.uint64)
+    grp = np.arange(s_streams) // (s_streams // freqs_g.shape[0])
+    f_tab, c_tab = _np_tables(freqs_g)
     x = np.full(s_streams, RANS_L, np.uint64)
-    emitted: List[int] = []
     x_max_mul = (RANS_L << 16) >> K_PROB
+    steps: List[np.ndarray] = []          # step t = l-1 .. 0
     for t in range(l - 1, -1, -1):
-        for s in range(s_streams - 1, -1, -1):
-            grp = s // sg
-            v = int(syms[s, t])
-            f = int(f64[grp, v])
-            if x[s] >= f * x_max_mul:
-                emitted.append(int(x[s] & 0xFFFF))
-                x[s] >>= 16
-            x[s] = ((x[s] // f) << K_PROB) + (x[s] % f) + int(cums[grp][v])
-    return np.array(emitted[::-1], np.uint16), x.astype(np.uint32)
+        v = syms[:, t]
+        f, c = f_tab[grp, v], c_tab[grp, v]
+        emit = x >= f * np.uint64(x_max_mul)
+        steps.append((x[emit] & np.uint64(0xFFFF)).astype(np.uint16))
+        x = np.where(emit, x >> np.uint64(16), x)
+        x = ((x // f) << np.uint64(K_PROB)) + x % f + c
+    words = np.concatenate(steps[::-1]) if steps else np.zeros(0, np.uint16)
+    return words, x.astype(np.uint32)
 
 
 def np_decode_grouped(words, states, freqs_g, s_streams: int, l: int):
     g = freqs_g.shape[0]
-    sg = s_streams // g
-    cums = [np.concatenate(([0], np.cumsum(fq)))[:256].astype(np.int64)
-            for fq in freqs_g]
-    slot2sym = np.zeros((g, 1 << K_PROB), np.int64)
-    for grp in range(g):
-        for v in range(256):
-            slot2sym[grp, cums[grp][v]: cums[grp][v] + int(freqs_g[grp, v])] = v
-    x = states.astype(np.uint64).copy()
+    grp = np.arange(s_streams) // (s_streams // g)
+    f_tab, c_tab = _np_tables(freqs_g)
+    slot2sym = np.stack([np.repeat(np.arange(256), np.asarray(fq, np.int64))
+                         for fq in freqs_g])                  # (G, 2^K)
+    words = np.asarray(words).astype(np.uint64)
+    x = np.asarray(states).astype(np.uint64)
     out = np.zeros((s_streams, l), np.uint8)
     ptr = 0
     for t in range(l):
-        for s in range(s_streams):
-            grp = s // sg
-            slot = int(x[s]) & MASK
-            v = int(slot2sym[grp, slot])
-            out[s, t] = v
-            x[s] = int(freqs_g[grp, v]) * (int(x[s]) >> K_PROB) + slot \
-                - int(cums[grp][v])
-            if x[s] < RANS_L:
-                x[s] = (x[s] << 16) | int(words[ptr])
-                ptr += 1
+        slot = x & np.uint64(MASK)
+        v = slot2sym[grp, slot.astype(np.int64)]
+        out[:, t] = v
+        x = f_tab[grp, v] * (x >> np.uint64(K_PROB)) + slot - c_tab[grp, v]
+        renorm = x < RANS_L
+        n = int(renorm.sum())
+        x[renorm] = (x[renorm] << np.uint64(16)) | words[ptr:ptr + n]
+        ptr += n
     return out
 
 
@@ -202,8 +187,8 @@ def _compact4(vals: jnp.ndarray, flags: jnp.ndarray) -> jnp.ndarray:
     residual values): base-4 shift digits LSB-first, ceil(log4(S))
     stages of 3-way shift+select.  Half the sequential stages of the
     radix-2 network — a latency win for the small per-scan-step arrays
-    in the decode loop (each stage is a fused elementwise kernel; stage
-    count, not element count, is what the v5e pays for at S<=64K)."""
+    in the decode loop (each stage is a fused elementwise kernel, so
+    stage count, not element count, sets the latency at S<=64K)."""
     s = flags.shape[0]
     ranks = jnp.cumsum(flags.astype(jnp.int32)) - flags.astype(jnp.int32)
     idx = jnp.arange(s, dtype=jnp.int32)
@@ -301,8 +286,7 @@ def butterfly_compact_chunked(vals: jnp.ndarray, flags: jnp.ndarray,
     of dynamic_update_slice writes at the chunks' cumulative offsets —
     each chunk's packed prefix lands exactly after the previous chunk's
     real words, so later writes overwrite earlier chunks' padding tails.
-    Output identical to butterfly_compact (same word order); measured
-    ~3x on the v5e for the encode word-compaction pass.
+    Output identical to butterfly_compact (same word order).
 
     Returns (out (n,), total_count scalar)."""
     n = vals.shape[0]
@@ -376,51 +360,25 @@ def _compact_words(lows: jnp.ndarray, emits: jnp.ndarray):
 _SHIFT_EMIT = 32 - K_PROB  # x >= f * 2^_SHIFT_EMIT <=> (x >> _SHIFT_EMIT) >= f
 
 
-@functools.partial(jax.jit, static_argnames=("with_counts",))
 def jax_encode(syms: jnp.ndarray, freqs: jnp.ndarray, cums: jnp.ndarray,
                with_counts: bool = False):
     """syms (S, L) uint8 -> (words (S*L,) uint16 with the valid words as
     a PREFIX in decoder consumption order, n_words, states (S,) u32).
     With with_counts=True also returns (L,) int32 per-DECODE-step word
-    counts (how many words step t renormalizes with) — the sidecar the
-    Pallas decode kernel's window pre-pass consumes.
+    counts (how many words step t renormalizes with).  The one-table
+    case (G = 1) of jax_encode_grouped.
 
     Two-phase: the sequential scan only advances the states and records
-    the (low16, emit) grids as scan outputs (~15 cheap vector ops per
-    step); ONE global monotone compaction then packs the flagged words.
-    This moves the routing work out of the latency-bound scan into a
-    single bandwidth-bound pass (measured ~2x encode on the v5e vs a
-    per-step butterfly + dynamic_update_slice).
+    the (low16, emit) grids; ONE global monotone compaction then packs
+    the flagged words, a single bandwidth-bound pass instead of a
+    per-step butterfly + dynamic_update_slice.
 
     Order: the scan consumes symbols in reverse step order, so the
     recorded grids flipped on the step axis are exactly (t asc, s asc)
     — the decoder's consumption order (np_encode emits t desc, s desc
     and flips once at the end)."""
-    s_streams, l = syms.shape
-    from vcf_tpu.entropy.interleaved import lookup_tables256
-
-    tabs = jnp.stack([freqs.astype(jnp.int32), cums.astype(jnp.int32)], axis=1)
-    fc = lookup_tables256(syms, tabs)                 # (S, L, 2) via MXU
-    f_arr = fc[..., 0].astype(jnp.uint32)             # (S, L)
-    c_arr = fc[..., 1].astype(jnp.uint32)
-
-    def step(x, inp):
-        f, cum = inp                      # (S,) each, uint32
-        emit = (x >> _SHIFT_EMIT) >= f
-        low16 = (x & jnp.uint32(0xFFFF)).astype(jnp.uint16)
-        x = jnp.where(emit, x >> 16, x)
-        x = ((x // f) << K_PROB) + (x % f) + cum
-        return x, (low16, emit)
-
-    x0 = jnp.full((s_streams,), RANS_L, jnp.uint32)
-    x, (lows, emits) = jax.lax.scan(
-        step, x0, (f_arr.T[::-1], c_arr.T[::-1]),  # reversed symbol order
-    )
-    words, n_words = _compact_words(lows, emits)      # (t asc, s asc) order
-    if with_counts:
-        counts = jnp.sum(emits.astype(jnp.int32), axis=1)[::-1]
-        return words, n_words, x, counts
-    return words, n_words, x
+    return jax_encode_grouped(syms, freqs[None], cums[None],
+                              with_counts=with_counts)
 
 
 @functools.partial(jax.jit, static_argnames=("l",))
@@ -431,7 +389,7 @@ def jax_decode(words_padded: jnp.ndarray, start: jnp.ndarray,
     Returns decoded symbols (S, l) uint8.
 
     The slot->symbol inversion feeds the monotone `slot >= cum`
-    comparison matrix STRAIGHT into one (S, 256) @ (256, 3) MXU matmul
+    comparison matrix STRAIGHT into one (S, 256) @ (256, 3) matmul
     against the first-difference table D[v] = tab[v] - tab[v-1]: the
     row of `ge` is a prefix of ones ending at the wanted symbol, so the
     product telescopes to tab[sym] — no one-hot construction at all.
@@ -481,26 +439,22 @@ def jax_decode(words_padded: jnp.ndarray, start: jnp.ndarray,
 # at the bench's default quantization).
 # ---------------------------------------------------------------------------
 
-@functools.partial(jax.jit, static_argnames=("unroll", "with_counts"))
-def jax_encode_grouped(syms: jnp.ndarray, freqs_g: jnp.ndarray,
-                       cums_g: jnp.ndarray, unroll: int = 1,
-                       with_counts: bool = False):
-    """syms (S, L) uint8 with lanes grouped as described above;
-    freqs_g/cums_g (G, 256).  Same output contract as jax_encode.
+def _scan_grouped_xla(syms: jnp.ndarray, freqs_g: jnp.ndarray,
+                      cums_g: jnp.ndarray, unroll: int = 1):
+    """The encode's sequential phase as a `lax.scan`: syms (S, L) uint8
+    with lanes grouped as described above, freqs_g/cums_g (G, 256) ->
+    (lows (L, S) u16, emits (L, S) bool, states (S,) u32); row i is the
+    step that codes symbol L-1-i.  `ops.pallas.rans_scan.encode_scan`
+    is the same contract as one kernel.
 
     The per-symbol (freq, cum) fetch happens INSIDE the scan with
-    nibble one-hots — the high-nibble one-hot pulls the symbol's
-    16-entry table row with one (G, S/G, 16) @ (G, 16, 32) MXU matmul,
-    the low-nibble one-hot selects within it — instead of a separate
-    whole-plane lookup pass (which materialized (S, L, 2) int32 grids:
-    measured 66 ms of a 111 ms encode at 50M symbols on the v5e).
-    Table values < 2^15, exact in f32.
+    nibble one-hots: the high-nibble one-hot pulls the symbol's
+    16-entry table row with one (G, S/G, 16) @ (G, 16, 32) matmul, the
+    low-nibble one-hot selects within it.  Table values < 2^15, exact
+    in f32 at Precision.HIGHEST.
 
-    `unroll`: symbols encoded per scan step (l must divide).  The table
-    fetch for all `unroll` symbols is ONE batched (G, u*S/G, 16) MXU
-    matmul — only the ~6-op state update chains per symbol — which
-    amortizes the latency-bound small-matmul fetch the same way the
-    decoder's hierarchical unroll does."""
+    `unroll`: symbols encoded per scan step (l must divide); the table
+    fetch for all `unroll` symbols is one batched matmul."""
     s_streams, l = syms.shape
     g = freqs_g.shape[0]
     sg = s_streams // g
@@ -546,21 +500,58 @@ def jax_encode_grouped(syms: jnp.ndarray, freqs_g: jnp.ndarray,
     x0 = jnp.full((s_streams,), RANS_L, jnp.uint32)
     x, (lows, emits) = jax.lax.scan(
         step, x0, syms.T[::-1].reshape(l // u, u, s_streams))
-    lows = lows.reshape(l, s_streams)
-    emits = emits.reshape(l, s_streams)
+    return lows.reshape(l, s_streams), emits.reshape(l, s_streams), x
+
+
+def _finish_stream(lows, emits, states, with_counts: bool):
+    """Scan records -> (words, n_words, states[, counts]) as jax_encode."""
     words, n_words = _compact_words(lows, emits)      # (t asc, s asc) order
     if with_counts:
         # decode step t consumes the words emitted at scan step l-1-t
         counts = jnp.sum(emits.astype(jnp.int32), axis=1)[::-1]
-        return words, n_words, x, counts
-    return words, n_words, x
+        return words, n_words, states, counts
+    return words, n_words, states
+
+
+@functools.partial(jax.jit, static_argnames=("unroll", "with_counts"))
+def jax_encode_grouped(syms: jnp.ndarray, freqs_g: jnp.ndarray,
+                       cums_g: jnp.ndarray, unroll: int = 1,
+                       with_counts: bool = False):
+    """syms (S, L) uint8 with lanes grouped as described above;
+    freqs_g/cums_g (G, 256).  Same output contract as jax_encode.
+    Always the XLA scan: the plain version the encode kernel is held
+    to (codecs call `encode_grouped`)."""
+    return _finish_stream(*_scan_grouped_xla(syms, freqs_g, cums_g, unroll),
+                          with_counts)
+
+
+@functools.partial(jax.jit, static_argnames=("kernel",))
+def _encode_grouped(syms, freqs_g, cums_g, kernel: bool):
+    if kernel:
+        from vcf_tpu.ops.pallas import rans_scan
+
+        recs = rans_scan.encode_scan(syms, freqs_g, cums_g)
+    else:
+        recs = _scan_grouped_xla(syms, freqs_g, cums_g)
+    return _finish_stream(*recs, with_counts=True)
+
+
+def encode_grouped(syms, freqs_g, cums_g):
+    """The codecs' grouped encode -> (words, n_words, states, counts).
+    Byte-identical to jax_encode_grouped(..., with_counts=True); the
+    sequential phase runs in the encode-scan kernel wherever
+    `ops.pallas.use_encode_kernel` admits the shape, else in XLA."""
+    from vcf_tpu.ops.pallas import use_encode_kernel
+
+    return _encode_grouped(syms, freqs_g, cums_g,
+                           kernel=use_encode_kernel(syms.shape[0]))
 
 
 @functools.partial(jax.jit, static_argnames=("l",))
 def jax_decode_grouped(words_padded: jnp.ndarray, start: jnp.ndarray,
                        states: jnp.ndarray, freqs_g: jnp.ndarray,
                        cums_g: jnp.ndarray, l: int):
-    """Inverse of jax_encode_grouped; one batched (G, S/G, 256) MXU
+    """Inverse of jax_encode_grouped; one batched (G, S/G, 256)
     matmul per step resolves every lane against its own group table."""
     s_streams = states.shape[0]
     g = freqs_g.shape[0]
@@ -649,154 +640,6 @@ def block_unlanes(syms: jnp.ndarray, b: int, shape) -> jnp.ndarray:
     return blk.transpose(2, 3, 0, 4, 1, 5).reshape(n, h, w, c)
 
 
-@functools.lru_cache(maxsize=None)
-def _interleave_qmats(b: int, w: int, c: int):
-    """One-hot (b, w*c//b, w*c) matrices Q with
-    Q[gx, bx*c + ch, (bx*b + gx)*c + ch] = 1 — the within-row
-    (bx, gx, ch) <-> (bx, ch) byte interleave as an MXU matmul.
-    Entries are 0/1 and the u8 operands are <= 255, both exact in
-    bf16 with f32 accumulation, so the 'transpose via matmul' is
-    bit-exact."""
-    nbx = w // b
-    q = np.zeros((b, nbx * c, w * c), np.float32)
-    for gx in range(b):
-        for bx in range(nbx):
-            for ch in range(c):
-                q[gx, bx * c + ch, (bx * b + gx) * c + ch] = 1.0
-    # numpy, not jnp: a device array created inside a trace would leak
-    # a tracer through the cache
-    return q.astype(jnp.bfloat16)
-
-
-def block_lanes_mm(planes: jnp.ndarray, b: int, s_streams: int) -> jnp.ndarray:
-    """MXU-relayout laning: same per-subband grouping as `block_lanes`
-    (lane s // (S/b^2) = coefficient (gy, gx), so grouped tables apply
-    unchanged) but with a LANE-MAJOR block order — lane j of group g
-    codes blocks f = j*L + t for t = 0..L-1, f enumerating
-    (frame, block_row, block_col, channel) raster.
-
-    Why: `block_unlanes`'s (S, L) -> (N, H, W, C) permutation is a
-    byte-granularity XLA transpose measured at ~23 ms for 50 MB on the
-    v5e (r4 probe 23) — the decode tail's dominant cost.  With the
-    lane-major order, (S, L) -> (G, f) is a FREE contiguous reshape,
-    and the only real data movement left is the within-row
-    (bx, gx, ch) interleave, done here as a one-hot bf16 einsum on the
-    MXU (~0.6 GFLOP per 1080p frame; bit-exact, see _interleave_qmats).
-
-    NOT wire-compatible with block_lanes (different symbol order, same
-    rate); pair with `block_unlanes_mm` only.
-    """
-    n, h, w, c = planes.shape
-    g = b * b
-    sg = s_streams // g
-    r = n * (h // b)
-    assert h % b == 0 and w % b == 0 and (
-        r * (w // b) * c) % sg == 0, (planes.shape, s_streams)
-    v = planes.reshape(r, b, w * c)                    # (R, gy, W*C)
-    q = jnp.asarray(_interleave_qmats(b, w, c))
-    sb = jnp.einsum(
-        "ryq,xdq->yxrd", v.astype(jnp.bfloat16), q,
-        preferred_element_type=jnp.float32)            # (gy, gx, R, NBX*C)
-    sb = sb.astype(jnp.uint8)
-    l = (r * (w // b) * c) // sg
-    return sb.reshape(g, sg, l).reshape(g * sg, l)
-
-
-def block_unlanes_mm(syms: jnp.ndarray, b: int, shape) -> jnp.ndarray:
-    """Inverse of block_lanes_mm: (S, L) -> (N, H, W, C) block layout
-    via the transposed one-hot einsum (reshape is contiguous, the MXU
-    does the interleave)."""
-    n, h, w, c = shape
-    g = b * b
-    s_streams, l = syms.shape
-    sg = s_streams // g
-    r = n * (h // b)
-    sb = syms.reshape(g, sg * l).reshape(b, b, r, (w // b) * c)
-    q = jnp.asarray(_interleave_qmats(b, w, c))
-    v = jnp.einsum(
-        "yxrd,xdq->ryq", sb.astype(jnp.bfloat16), q,
-        preferred_element_type=jnp.float32)            # (R, gy, W*C)
-    return v.astype(jnp.uint8).reshape(n, h, w, c)
-
-
-def grid_lanes(planes_grid: jnp.ndarray, b: int, s_streams: int,
-               rows: int = 32, cw: int = 128) -> jnp.ndarray:
-    """(N, C, H, W) u8 planes in the SUBBAND-GRID tile layout emitted by
-    ops/pallas/dct_kernel.fused_dct_quantize(grid_layout=True) — tile
-    rows ordered (coeff_y, block_y), cols (coeff_x, block_x) — to the
-    (S, L) lane matrix with per-coefficient groups (lane // (S/b²) =
-    gy*b+gx, grouped tables apply unchanged) and LANE-MAJOR block order.
-
-    Every step is a contiguous reshape or a transpose whose minor atom
-    is cw/b bytes (16 at 1080p) — no byte-granular shuffles (those were
-    ~8 ms encode + ~7 ms decode of the 8x1080p bench, r4 probes 23/26).
-    Pair with `grid_unlanes`; wire format differs from block_lanes
-    (same rate: identical per-group symbol multisets)."""
-    n, c, h, w = planes_grid.shape
-    g = b * b
-    sg = s_streams // g
-    j_t, k_t = h // rows, w // cw
-    br, bc = rows // b, cw // b
-    n_g = n * c * j_t * br * k_t * bc
-    assert h % rows == 0 and w % cw == 0 and n_g % sg == 0, (
-        planes_grid.shape, s_streams, rows, cw)
-    x = planes_grid.reshape(n, c, j_t, b, br, k_t, b, bc)
-    xt = x.transpose(3, 6, 0, 1, 2, 4, 5, 7)   # (gy, gx, N, C, J, BR, K, BC)
-    l = n_g // sg
-    return xt.reshape(g, sg, l).reshape(g * sg, l)
-
-
-def grid_lanes_lmajor(planes_grid: jnp.ndarray, b: int, s_streams: int,
-                      rows: int = 32, cw: int = 128) -> jnp.ndarray:
-    """grid_lanes emitting the (L, S) layout the Pallas encode kernel
-    consumes (pallas_encode_grouped_u8(lmajor=True)) — ONE transpose
-    total instead of grid_lanes' lane-major transpose plus the
-    kernel-side .T (r5)."""
-    n, c, h, w = planes_grid.shape
-    g = b * b
-    sg = s_streams // g
-    j_t, k_t = h // rows, w // cw
-    br, bc = rows // b, cw // b
-    n_g = n * c * j_t * br * k_t * bc
-    assert h % rows == 0 and w % cw == 0 and n_g % sg == 0, (
-        planes_grid.shape, s_streams, rows, cw)
-    x = planes_grid.reshape(n, c, j_t, b, br, k_t, b, bc)
-    xt = x.transpose(3, 6, 0, 1, 2, 4, 5, 7)
-    l = n_g // sg
-    return xt.reshape(g, sg, l).transpose(2, 0, 1).reshape(l, g * sg)
-
-
-def grid_unlanes_lmajor(syms: jnp.ndarray, b: int, shape,
-                        rows: int = 32, cw: int = 128) -> jnp.ndarray:
-    """Inverse consuming the (L, S) layout pallas_decode_grouped
-    (lmajor=True) emits — skips the kernel-side .T."""
-    n, c, h, w = shape
-    g = b * b
-    l, s_streams = syms.shape
-    sg = s_streams // g
-    j_t, k_t = h // rows, w // cw
-    br, bc = rows // b, cw // b
-    xt = (syms.reshape(l, g, sg).transpose(1, 2, 0)
-          .reshape(g, sg * l).reshape(b, b, n, c, j_t, br, k_t, bc))
-    x = xt.transpose(2, 3, 4, 0, 5, 6, 1, 7)
-    return x.reshape(n, c, h, w)
-
-
-def grid_unlanes(syms: jnp.ndarray, b: int, shape,
-                 rows: int = 32, cw: int = 128) -> jnp.ndarray:
-    """Inverse of grid_lanes: (S, L) -> (N, C, H, W) grid-tile layout
-    (feed to fused_dequantize_idct(grid_layout=True))."""
-    n, c, h, w = shape
-    g = b * b
-    s_streams, l = syms.shape
-    sg = s_streams // g
-    j_t, k_t = h // rows, w // cw
-    br, bc = rows // b, cw // b
-    xt = syms.reshape(g, sg * l).reshape(b, b, n, c, j_t, br, k_t, bc)
-    x = xt.transpose(2, 3, 4, 0, 5, 6, 1, 7)   # (N, C, J, gy, BR, K, gx, BC)
-    return x.reshape(n, c, h, w)
-
-
 # ---------------------------------------------------------------------------
 # Order-1 context modeling ("cgrans"): one table per (subband, class of
 # the previous symbol in the same lane).  In the lane layouts used here
@@ -804,7 +647,7 @@ def grid_unlanes(syms: jnp.ndarray, b: int, shape,
 # previous symbol is the same DCT coefficient of the neighboring block
 # — measured 8% rate over order-0 grouped tables with the 4-class
 # context on the 1080p bench planes (19% with 15 classes;
-# docs/BENCH_SUMMARY.md).  Beyond the reference's capability set: its
+# measured on the 1080p planes).  Beyond the reference's capability set: its
 # context coders (CBAHC/CBAAC) are host-sequential; this one keeps the
 # interleaved-rANS lane parallelism.
 # ---------------------------------------------------------------------------
@@ -871,30 +714,31 @@ def ctx_class_n(prev: jnp.ndarray, n_ctx: int) -> jnp.ndarray:
 
 def np_encode_ctx(syms: np.ndarray, freqs_gc: np.ndarray):
     """Reference mirror of jax_encode_ctx (same word order conventions
-    as np_encode; tests pin the XLA path against this)."""
+    as np_encode_grouped; tests pin the XLA path against this).  The
+    class of symbol t is that of symbol t-1 in the same lane (class 0
+    for t = 0)."""
     s_streams, l = syms.shape
     g, n_ctx = freqs_gc.shape[:2]
-    bounds = CTX_BOUNDS[n_ctx]
-    sg = s_streams // g
-    cums = np.concatenate([np.zeros((g, n_ctx, 1), np.uint64),
-                           np.cumsum(freqs_gc, axis=2)], axis=2)
+    grp = np.arange(s_streams) // (s_streams // g)
+    bounds = np.asarray(CTX_BOUNDS[n_ctx])
+    f_tab = np.asarray(freqs_gc).astype(np.uint64)
+    c_tab = np.concatenate([np.zeros((g, n_ctx, 1), np.uint64),
+                            np.cumsum(f_tab, axis=2)[:, :, :255]], axis=2)
     x = np.full(s_streams, RANS_L, np.uint64)
-    emitted = []
+    steps: List[np.ndarray] = []
     for t in range(l - 1, -1, -1):
-        for s in range(s_streams - 1, -1, -1):
-            gi = s // sg
-            if t == 0:
-                c = 0
-            else:
-                d = abs(int(syms[s, t - 1]) - 128)
-                c = sum(d >= b for b in bounds)
-            v = int(syms[s, t])
-            f = int(freqs_gc[gi, c, v])
-            if (x[s] >> _SHIFT_EMIT) >= f:
-                emitted.append(int(x[s] & 0xFFFF))
-                x[s] >>= 16
-            x[s] = (x[s] // f << K_PROB) + (x[s] % f) + int(cums[gi, c, v])
-    return np.asarray(emitted[::-1], np.uint16), x.astype(np.uint32)
+        cls = np.zeros(s_streams, np.int64)
+        if t:
+            d = np.abs(syms[:, t - 1].astype(np.int64) - 128)
+            cls = np.sum(d[:, None] >= bounds[None, :], axis=1)
+        v = syms[:, t]
+        f, c = f_tab[grp, cls, v], c_tab[grp, cls, v]
+        emit = (x >> np.uint64(_SHIFT_EMIT)) >= f
+        steps.append((x[emit] & np.uint64(0xFFFF)).astype(np.uint16))
+        x = np.where(emit, x >> np.uint64(16), x)
+        x = ((x // f) << np.uint64(K_PROB)) + x % f + c
+    words = np.concatenate(steps[::-1]) if steps else np.zeros(0, np.uint16)
+    return words, x.astype(np.uint32)
 
 
 def ctx_group_histograms(lanes: jnp.ndarray, g: int,
@@ -1041,10 +885,10 @@ def group_histograms(lanes: jnp.ndarray, g: int,
                      chunk: int = 1 << 13) -> jnp.ndarray:
     """(G*sg, L) lane matrix -> (G, 256) symbol counts, one dispatch.
 
-    Nibble-factored MXU histogram: hist[g, hi, lo] is the (G, 16, 16)
+    Nibble-factored matmul histogram: hist[g, hi, lo] is the (G, 16, 16)
     product of high- and low-nibble one-hots, accumulated over chunks
     of the lane axis — 32 compares/symbol instead of 256 and the
-    reduction rides the MXU.  Scatter-free (docs/PERF_NOTES.md).
+    reduction is a matmul.  Scatter-free.
     Replaces the per-subband host bincount loop that made the `grans`
     product path ~4.5x slower than `rans` at encode (VERDICT r2 weak
     item 2).  Exact for up to 2^24 symbols per group per chunk (f32
@@ -1106,9 +950,10 @@ def jax_sparse_encode(flat, zero_sym, fill_sym, flag_f, flag_c, nz_f, nz_c,
         n_nz = jnp.sum(flags.astype(jnp.int32))
     nz = jnp.where(jnp.arange(cap) < n_nz, nz_all[:cap],
                    fill_sym.astype(flat.dtype))
-    fw, fnw, fst = jax_encode(
-        flag_bytes.reshape(-1, s_flags).T, flag_f, flag_c)
-    zw, znw, zst = jax_encode(nz.reshape(-1, s_nz).T, nz_f, nz_c)
+    fw, fnw, fst, _ = encode_grouped(
+        flag_bytes.reshape(-1, s_flags).T, flag_f[None], flag_c[None])
+    zw, znw, zst, _ = encode_grouped(
+        nz.reshape(-1, s_nz).T, nz_f[None], nz_c[None])
     return fw, fnw, fst, zw, znw, zst, n_nz
 
 
@@ -1134,6 +979,32 @@ def jax_sparse_decode(flag_words_padded, flag_states, nz_words_padded,
 
 
 # ---------------------------------------------------------------------------
+# Word buffers between host and device
+# ---------------------------------------------------------------------------
+
+#: word buffers cross to and from the device in lengths rounded up to a
+#: multiple of this, so each program compiles once per size class and
+#: not once per stream length
+WORD_BUCKET = 1 << 16
+
+
+def pad_words(words: np.ndarray, margin: int) -> np.ndarray:
+    """`words` and at least `margin` zeros after them (a decode step's
+    window reads up to one lane count past its pointer), in a length
+    that is a multiple of WORD_BUCKET."""
+    n = -(-(words.size + margin) // WORD_BUCKET) * WORD_BUCKET
+    out = np.zeros(n, np.uint16)
+    out[:words.size] = words
+    return out
+
+
+def words_to_host(words: jnp.ndarray, n_words: int) -> np.ndarray:
+    """The first n_words of a device word buffer."""
+    k = min(words.shape[0], -(-n_words // WORD_BUCKET) * WORD_BUCKET)
+    return np.asarray(words[:k])[:n_words]
+
+
+# ---------------------------------------------------------------------------
 # Entropy-codec wrapper
 # ---------------------------------------------------------------------------
 
@@ -1156,8 +1027,7 @@ class RANSCodec(EntropyCodec):
     def _pick_streams(n: int, requested: int) -> int:
         """Largest power of two with >= ~512 symbols per stream, capped
         at `requested`.  More streams = shorter scan = higher device
-        throughput (v5e: 1k->64k streams is ~2x encode, see
-        docs/PERF_NOTES.md); ~512 symbols/stream keeps the 4-byte
+        throughput; ~512 symbols/stream keeps the 4-byte
         final-state sidecar under ~0.07 bits/symbol."""
         target = min(requested, max(8, n // 512))
         return 1 << max(3, int(np.floor(np.log2(target))))
@@ -1171,29 +1041,13 @@ class RANSCodec(EntropyCodec):
         counts = np.bincount(padded, minlength=256)
         freqs = quantize_freqs(counts)
         cums = np.concatenate(([0], np.cumsum(freqs)))[:256].astype(np.uint32)
-        sg8 = s_streams // 8
-        if (jax.default_backend() == "tpu" and s_streams % (8 * 128) == 0
-                and (l * s_streams) % 32768 == 0):
-            # Pallas fast path via the grouped kernels with the SAME
-            # table replicated into 8 pseudo-groups — byte-identical
-            # stream and states to jax_encode (state law and (t, s)
-            # emit order are table-layout-independent; pinned by
-            # tests/test_rans.py)
-            from vcf_tpu.ops.pallas import rans_encode as _re
-
-            fg = jnp.asarray(np.repeat(freqs[None], 8, 0).astype(np.uint32))
-            cg = jnp.asarray(np.repeat(cums[None], 8, 0))
-            le, states = _re.pallas_encode_grouped_raw(
-                jnp.asarray(syms), fg, cg, unroll=_pick_unroll(l), sg=sg8)
-            words, n_words, _counts = _re.finish_stream_pallas(le, radix=2)
-        else:
-            words, n_words, states = jax_encode(
-                jnp.asarray(syms), jnp.asarray(freqs.astype(np.uint32)),
-                jnp.asarray(cums),
-            )
+        # one table is the G = 1 case of the grouped encode: byte-identical
+        # stream and states to jax_encode (pinned by tests/test_rans.py)
+        words, n_words, states, _ = encode_grouped(
+            jnp.asarray(syms), jnp.asarray(freqs[None].astype(np.uint32)),
+            jnp.asarray(cums[None]))
         n_words = int(n_words)
-        words_np = np.asarray(words[:n_words])
-        payload = words_np.tobytes()
+        payload = words_to_host(words, n_words).tobytes()
         side = struct.pack("<IIQI", s_streams, l, n, n_words)
         side += np.asarray(states).astype("<u4").tobytes()
         side += zlib.compress(freqs.astype("<u2").tobytes(), 9)
@@ -1208,21 +1062,11 @@ class RANSCodec(EntropyCodec):
         cums = np.concatenate(([0], np.cumsum(freqs)))[:256].astype(np.uint32)
         words = np.frombuffer(payload, "<u2", n_words).astype(np.uint16)
         # pad so every dynamic_slice window is in range
-        words_padded = np.concatenate([words, np.zeros(s_streams + 16, np.uint16)])
-        sg8 = s_streams // 8
-        if jax.default_backend() == "tpu" and s_streams % (8 * 128) == 0:
-            # hierarchical grouped decode with replicated pseudo-group
-            # tables (same lane state law; ~2x the flat XLA scan)
-            fg = jnp.asarray(np.repeat(freqs[None], 8, 0))
-            cg = jnp.asarray(np.repeat(cums[None], 8, 0))
-            syms = jax_decode_hier(
-                jnp.asarray(words_padded), jnp.int32(0),
-                jnp.asarray(states), fg, cg, l, unroll=_pick_unroll(l))
-        else:
-            syms = jax_decode(
-                jnp.asarray(words_padded), jnp.int32(0),
-                jnp.asarray(states), jnp.asarray(freqs), jnp.asarray(cums), l,
-            )
+        words_padded = pad_words(words, s_streams + 16)
+        syms = jax_decode(
+            jnp.asarray(words_padded), jnp.int32(0),
+            jnp.asarray(states), jnp.asarray(freqs), jnp.asarray(cums), l,
+        )
         flat = np.asarray(syms).T.reshape(-1)
         return flat[:n]
 
@@ -1265,7 +1109,7 @@ def jax_decode_hier(words_padded: jnp.ndarray, start: jnp.ndarray,
 
       1. coarse: compare slot vs 16 bucket boundaries cums[16j] (S, 16);
       2. fetch the winning bucket's 16 fine boundaries + freqs + symbol
-         base with ONE (S, 16) @ (16, 33) MXU matmul on the coarse
+         base with ONE (S, 16) @ (16, 33) matmul on the coarse
          one-hot (per group);
       3. fine: compare slot vs the fetched per-lane boundaries (S, 16)
          elementwise; freq/cum/symbol fall out of the fine one-hot.
@@ -1328,16 +1172,6 @@ def jax_decode_hier(words_padded: jnp.ndarray, start: jnp.ndarray,
         length=l // unroll,
     )
     return out.reshape(l, s_streams).T  # (S, l)
-
-
-def _pick_unroll(l: int) -> int:
-    """Largest unroll in {4, 3, 2, 1} dividing l (the Pallas decode
-    packs `unroll` symbols into the bytes of one int32 output lane, so
-    any unroll <= 4 works — not just powers of two)."""
-    for u in (4, 3, 2, 1):
-        if l % u == 0:
-            return u
-    return 1
 
 
 class GroupedRANSCodec(EntropyCodec):
@@ -1412,28 +1246,13 @@ class GroupedRANSCodec(EntropyCodec):
             # per-image tables, trained on device from the lane matrix
             counts = np.asarray(group_histograms(lanes, g))
             freqs_g, cums_g = freqs_from_counts(counts)
-        sg = s_streams // g
-        if (jax.default_backend() == "tpu" and sg % 128 == 0
-                and (l * s_streams) % 32768 == 0):
-            # whole-scan Pallas encode + device stitch: same stream
-            # bytes as jax_encode_grouped (two-phase raw kernel docs),
-            # ~8x the XLA scan at bench shapes (r4; honest XLA encode
-            # is ~199 ms / 50M symbols, kernel+stitch ~24 ms)
-            from vcf_tpu.ops.pallas import rans_encode as _re
-
-            le, states = _re.pallas_encode_grouped_raw(
-                lanes, jnp.asarray(freqs_g), jnp.asarray(cums_g),
-                unroll=_pick_unroll(l), sg=sg)
-            words, n_words, counts = _re.finish_stream_pallas(le, radix=2)
-        else:
-            words, n_words, states, counts = jax_encode_grouped(
-                lanes, jnp.asarray(freqs_g), jnp.asarray(cums_g),
-                with_counts=True)
+        words, n_words, states, counts = encode_grouped(
+            lanes, jnp.asarray(freqs_g), jnp.asarray(cums_g))
         n_words = int(n_words)
-        payload = np.asarray(words[:n_words]).tobytes()
+        payload = words_to_host(words, n_words).tobytes()
         # v2: per-decode-step renorm counts ride in the sidecar (zlib,
-        # ~1-4 bytes/step) so the decoder can pre-extract the Pallas
-        # kernel's word windows without a sequential discovery pass
+        # ~1-4 bytes/step): a windowed decoder can pre-extract each
+        # step's words without a sequential discovery pass
         counts_z = zlib.compress(
             np.asarray(counts).astype("<u4").tobytes(), 9)
         head = struct.pack(f"<BIIIB{arr.ndim}I", 2, s_streams, l, n_words,
@@ -1455,12 +1274,8 @@ class GroupedRANSCodec(EntropyCodec):
                 f"grans sidecar inconsistent: {s_streams} lanes x {l} "
                 f"steps != prod{shape} symbols")
         off = 14 + 4 * ndim
-        counts = None
-        if version >= 2:
+        if version >= 2:  # skip the per-step counts (windowed decoders)
             (cz_len,) = struct.unpack_from("<I", blob, off)
-            counts = np.frombuffer(
-                zlib.decompress(blob[off + 4: off + 4 + cz_len]), "<u4"
-            ).astype(np.int32)
             off += 4 + cz_len
         states = np.frombuffer(blob, "<u4", s_streams, off).astype(np.uint32)
         off += 4 * s_streams
@@ -1471,35 +1286,13 @@ class GroupedRANSCodec(EntropyCodec):
             np.concatenate(([0], np.cumsum(f)))[:256].astype(np.uint32)
             for f in freqs_g])
         words = np.frombuffer(payload, "<u2", n_words).astype(np.uint16)
-        lanes = self._decode_lanes(words, states, freqs_g, cums_g,
-                                   s_streams, l, counts)
+        wpad = pad_words(words, s_streams + 16)
+        lanes = jax_decode_grouped(
+            jnp.asarray(wpad), jnp.int32(0), jnp.asarray(states),
+            jnp.asarray(freqs_g), jnp.asarray(cums_g), l)
         full = (1,) + tuple(shape) if ndim == 3 else tuple(shape)
         out = np.asarray(subband_unlanes(lanes, self.b, full))
         return out.reshape(shape)
-
-    def _decode_lanes(self, words, states, freqs_g, cums_g, s_streams, l,
-                      counts):
-        """Pallas whole-scan decode on TPU when the lane grid tiles
-        (sg % 128 == 0, counts sidecar present); bit-identical XLA scan
-        otherwise."""
-        g = self.b * self.b
-        sg = s_streams // g
-        if (counts is not None and jax.default_backend() == "tpu"
-                and sg % 128 == 0):
-            from vcf_tpu.ops.pallas import rans_decode as _rd
-
-            cap = sg * max(1, -(-int(counts.max()) // sg))
-            cap = min(cap, g * sg)
-            wpad = np.concatenate([words, np.zeros(cap + 16, np.uint16)])
-            win = _rd.build_windows(jnp.asarray(wpad), jnp.asarray(counts),
-                                    cap)
-            return _rd.pallas_decode_grouped(
-                win, jnp.asarray(states), jnp.asarray(freqs_g),
-                jnp.asarray(cums_g), l, cap, unroll=_pick_unroll(l), sg=sg)
-        wpad = np.concatenate([words, np.zeros(s_streams + 16, np.uint16)])
-        return jax_decode_grouped(
-            jnp.asarray(wpad), jnp.int32(0), jnp.asarray(states),
-            jnp.asarray(freqs_g), jnp.asarray(cums_g), l)
 
 
 # ---------------------------------------------------------------------------
@@ -1565,24 +1358,10 @@ class CtxRANSCodec(EntropyCodec):
         lanes = subband_lanes_ctx(jnp.asarray(planes), self.b, s_streams)
         counts_gc = np.asarray(ctx_group_histograms(lanes, g, self.n_ctx))
         freqs_gc, cums_gc = ctx_freqs_from_counts(counts_gc)
-        sg = s_streams // g
-        if (jax.default_backend() == "tpu" and sg % 128 == 0
-                and (l * s_streams) % 32768 == 0
-                and l % _pick_unroll(l) == 0):
-            # whole-scan ctx kernel + device stitch (byte-identical to
-            # jax_encode_ctx, chip-pinned; 15 ms vs ~250 ms XLA at 50M)
-            from vcf_tpu.ops.pallas import rans_ctx as _rc
-            from vcf_tpu.ops.pallas import rans_encode as _re
-
-            le, states = _rc.pallas_encode_ctx_raw_u8(
-                lanes, jnp.asarray(freqs_gc), jnp.asarray(cums_gc),
-                unroll=_pick_unroll(l), sg=sg)
-            words, n_words, counts = _re.finish_stream_pallas(le, radix=2)
-        else:
-            words, n_words, states, counts = jax_encode_ctx(
-                lanes, jnp.asarray(freqs_gc), jnp.asarray(cums_gc))
+        words, n_words, states, counts = jax_encode_ctx(
+            lanes, jnp.asarray(freqs_gc), jnp.asarray(cums_gc))
         n_words = int(n_words)
-        payload = np.asarray(words[:n_words]).tobytes()
+        payload = words_to_host(words, n_words).tobytes()
         counts_z = zlib.compress(
             np.asarray(counts).astype("<u4").tobytes(), 9)
         # version 2 appends the class count (v1 readers assume 4)
@@ -1611,10 +1390,7 @@ class CtxRANSCodec(EntropyCodec):
                 f"steps != prod{shape} symbols")
         off = base + 13 + 4 * ndim
         (cz_len,) = struct.unpack_from("<I", blob, off)
-        counts = np.frombuffer(
-            zlib.decompress(blob[off + 4: off + 4 + cz_len]), "<u4"
-        ).astype(np.int32)
-        off += 4 + cz_len
+        off += 4 + cz_len  # per-step counts: for windowed decoders
         states = np.frombuffer(blob, "<u4", s_streams, off).astype(np.uint32)
         off += 4 * s_streams
         g = self.b * self.b
@@ -1626,31 +1402,9 @@ class CtxRANSCodec(EntropyCodec):
              np.cumsum(freqs_gc, axis=2)[:, :, :255].astype(np.uint32)],
             axis=2)
         words = np.frombuffer(payload, "<u2", n_words).astype(np.uint16)
-        sg = s_streams // g
-        if (jax.default_backend() == "tpu" and sg % 128 == 0
-                and l % _pick_unroll(l) == 0):
-            # windows-variant ctx kernel (wire path): the per-step
-            # counts sidecar drives the window pre-pass, the class
-            # rides in VMEM scratch (chip-pinned vs jax_decode_ctx)
-            from vcf_tpu.ops.pallas import rans_ctx as _rc
-            from vcf_tpu.ops.pallas import rans_decode as _rd
-
-            cap = sg * max(1, -(-int(counts.max()) // sg))
-            cap = min(cap, s_streams)
-            wpad = np.concatenate(
-                [words, np.zeros(cap + s_streams + 16, np.uint16)])
-            win = _rd.build_windows(jnp.asarray(wpad), jnp.asarray(counts),
-                                    cap)
-            lanes = _rc.pallas_decode_ctx(
-                win, jnp.asarray(states), jnp.asarray(freqs_gc),
-                jnp.asarray(cums_gc), l, cap, unroll=_pick_unroll(l),
-                sg=sg)
-        else:
-            wpad = np.concatenate(
-                [words, np.zeros(s_streams + 16, np.uint16)])
-            lanes = jax_decode_ctx(jnp.asarray(wpad), jnp.asarray(states),
-                                   jnp.asarray(freqs_gc),
-                                   jnp.asarray(cums_gc), l)
+        wpad = pad_words(words, s_streams + 16)
+        lanes = jax_decode_ctx(jnp.asarray(wpad), jnp.asarray(states),
+                               jnp.asarray(freqs_gc), jnp.asarray(cums_gc), l)
         full = (1,) + tuple(shape) if ndim == 3 else tuple(shape)
         out = np.asarray(subband_unlanes_ctx(lanes, self.b, full))
         return out.reshape(shape)
@@ -1686,7 +1440,7 @@ class SparseRANSCodec(EntropyCodec):
 
     Replaces functionally: the reference's entropy stage for quantized
     planes (src/Huffman.py, src/CBAAC.py roles); the sparsity split is
-    a TPU-native design, not a reference translation (SURVEY §7.3
+    a device-native design, not a reference translation (SURVEY §7.3
     "sequential entropy coders on a parallel machine")."""
 
     file_extension = ".srans"
@@ -1749,8 +1503,8 @@ class SparseRANSCodec(EntropyCodec):
             jnp.asarray(nz_f), jnp.asarray(nz_c),
             cap, s_flags, s_nz)
         fnw, znw = int(fnw), int(znw)
-        p_flags = np.asarray(fw[:fnw]).tobytes()
-        p_nz = np.asarray(zw[:znw]).tobytes()
+        p_flags = words_to_host(fw, fnw).tobytes()
+        p_nz = words_to_host(zw, znw).tobytes()
         head = struct.pack("<QQIBBIIII", n, n_nz, cap, zero_sym, fill,
                            s_flags, s_nz, fnw, znw)
         side = head
@@ -1779,8 +1533,8 @@ class SparseRANSCodec(EntropyCodec):
         l_nz = cap // s_nz
         fw = np.frombuffer(payload, "<u2", fnw)
         zw = np.frombuffer(payload[2 * fnw:], "<u2", znw)
-        fw_pad = np.concatenate([fw, np.zeros(s_flags + 16, np.uint16)])
-        zw_pad = np.concatenate([zw, np.zeros(s_nz + 16, np.uint16)])
+        fw_pad = pad_words(fw, s_flags + 16)
+        zw_pad = pad_words(zw, s_nz + 16)
         out = jax_sparse_decode(
             jnp.asarray(fw_pad), jnp.asarray(fst), jnp.asarray(zw_pad),
             jnp.asarray(zst), jnp.uint8(zero_sym),

@@ -1,7 +1,7 @@
 // vcf_tpu native entropy runtime.
 //
-// Host-side sequential bit-level loops that have no efficient TPU
-// mapping: canonical Huffman encode/decode, an adaptive range coder
+// Host-side sequential bit-level loops that have no efficient
+// accelerator mapping: canonical Huffman encode/decode, an adaptive range coder
 // with order-N byte contexts (capability parity with the reference's
 // CBAAC, src/CBAAC.py), and a context-based adaptive Huffman coder
 // that rebuilds its code from context counts before every symbol

@@ -6,7 +6,7 @@ array-in/array-out per-pixel transforms over the channel axis.
 
 All transforms here are pure functions of a `(H, W, 3)` (or any
 `(..., 3)`) array and fuse into surrounding XLA programs.  The matmul
-forms keep the channel contraction on the MXU when applied to large
+forms keep the channel contraction a matmul when applied to large
 batches.
 
 Variants:

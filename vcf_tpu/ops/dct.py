@@ -6,9 +6,9 @@ used at src/2D-DCT.py:17-20): per-channel block-wise orthonormal 2D
 DCT-II, and a permutation that gathers coefficient (u, v) of every
 block into subband (u, v).
 
-TPU-first design: the separable 2D DCT of all blocks at once is two
+Device design: the separable 2D DCT of all blocks at once is two
 batched matmuls with the BxB orthonormal DCT matrix — this keeps the
-work on the MXU with static shapes.  The subband permutation is a pure
+matmul work with static shapes.  The subband permutation is a pure
 reshape/transpose, which XLA fuses into the surrounding copy.
 
 Layout conventions (channel-last images `(H, W, C)`, H and W already

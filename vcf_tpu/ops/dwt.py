@@ -7,7 +7,7 @@ wavelet (default db5), per-subband quantization, and **each subband
 written as its own codestream** — LL stored as uint16 (+128), detail
 subbands as uint8 (+128) (src/2D-DWT.py:162-200).
 
-TPU-first implementation.  PyWavelets is not available in this
+Device implementation.  PyWavelets is not available in this
 environment, so the filter banks are constructed from scratch:
 
 * `haar`, `dbN` (Daubechies, N=1..10) — orthonormal lowpass by
@@ -682,7 +682,7 @@ class DWT:
         shapes = self._band_shapes(img.shape)
         sizes = [int(np.prod(shapes[0]))] * 2 + [
             int(np.prod(s)) for s in shapes[1:]]
-        sg, l = dd.grid_dims(sizes, jax.default_backend() == "tpu")
+        sg, l = dd.grid_dims(sizes)
         lanes = make_lanes(jnp.asarray(img), sg, l)
         g = len(sizes)
         # cgrans: per-(band, prev-class) tables over the lane-major
@@ -693,13 +693,12 @@ class DWT:
         if cfg.entropy == "cgrans" and sum(sizes) >= CTX_MIN_SYMBOLS:
             n_ctx = cfg.context_classes
         if n_ctx:
-            fg, cg = dd.train_ctx_tables(lanes, g, sg, n_ctx)
+            fg, cg = dd.train_ctx_tables(lanes, g, n_ctx)
             words, n_words, states, counts = dd.encode_grid_ctx(
-                lanes, fg, cg, sg)
+                lanes, fg, cg)
         else:
-            fg, cg = dd.train_tables(lanes, g, sg)
-            words, n_words, states, counts = dd.encode_grid(
-                lanes, fg, cg, sg)
+            fg, cg = dd.train_tables(lanes, g)
+            words, n_words, states, counts = dd.encode_grid(lanes, fg, cg)
 
         cs = CodeStream()
         cs.put_shape(img.shape)
@@ -723,14 +722,11 @@ class DWT:
         shapes = self._band_shapes(shape)
         sizes = [int(np.prod(shapes[0]))] * 2 + [
             int(np.prod(s)) for s in shapes[1:]]
-        (g, sg, l, n_words, qss, states, counts, fg, cg,
-         n_ctx) = dd.unpack_model(cs["gdwt_model"])
+        _, sg, l, n_words, _, states, _, fg, cg, n_ctx = dd.unpack_model(
+            cs["gdwt_model"])
         words = np.frombuffer(cs["gdwt_words"], "<u2")[:n_words]
-        if n_ctx:
-            lanes = dd.decode_grid_ctx(words, states, counts, fg, cg,
-                                       g, sg, l)
-        else:
-            lanes = dd.decode_grid(words, states, counts, fg, cg, g, sg, l)
+        decode = dd.decode_grid_ctx if n_ctx else dd.decode_grid
+        lanes = decode(words, states, fg, cg, l)
         bands = dd.grid_to_bands(lanes, sizes, sg)
         y = from_bands(bands, tuple(shapes))
         y = dct_ops.unpad_centered(y, shape)

@@ -5,7 +5,7 @@ Capability parity with the reference's L3 filter layer:
   * nlm       — cv2.fastNlMeansDenoisingColored     (src/NLM.py:50-53)
   * bm3d      — bm3d_rgb(img/255, sigma/255)        (src/BM3D.py:42-54)
 
-TPU-first implementations: Gaussian blur is a separable depthwise
+Device implementations: Gaussian blur is a separable depthwise
 convolution; NLM is vectorized over the search window as a sum of
 shifted-patch distances (one fused XLA program, no per-pixel loops);
 BM3D is the real hard-threshold stage (r4): displacement-sweep block
@@ -47,11 +47,13 @@ def gaussian_blur(img: jnp.ndarray, size: int) -> jnp.ndarray:
     # rows
     xp = jnp.pad(x, ((pad, pad), (0, 0), (0, 0)), mode="reflect")
     idx = jnp.arange(x.shape[0])[:, None] + jnp.arange(size)[None, :]
-    x = jnp.einsum("s,hswc->hwc", k, xp[idx])
+    x = jnp.einsum("s,hswc->hwc", k, xp[idx],
+                   precision=jax.lax.Precision.HIGHEST)
     # cols
     xp = jnp.pad(x, ((0, 0), (pad, pad), (0, 0)), mode="reflect")
     idx = jnp.arange(x.shape[1])[:, None] + jnp.arange(size)[None, :]
-    x = jnp.einsum("s,hwsc->hwc", k, xp[:, idx])
+    x = jnp.einsum("s,hwsc->hwc", k, xp[:, idx],
+                   precision=jax.lax.Precision.HIGHEST)
     return x
 
 
@@ -80,6 +82,7 @@ def nlm(img: jnp.ndarray, h: float, template: int = 7, search: int = 21) -> jnp.
             v[None], box, (1, 1), "VALID",
             dimension_numbers=("NHWC", "HWIO", "NHWC"),
             feature_group_count=1,
+            precision=jax.lax.Precision.HIGHEST,
         )[0]
 
     offsets = [
@@ -158,7 +161,8 @@ def _bm3d_stage(noisy, guide, sigma, b, n_group, s, step_phases,
     for (oy, ox) in offs:
         xs = jnp.roll(xpad, (-oy, -ox), (0, 1))
         gs = jnp.roll(gpad, (-oy, -ox), (0, 1))
-        luma = jnp.einsum("hwc,c->hw", gs, lw)
+        luma = jnp.einsum("hwc,c->hw", gs, lw,
+                          precision=jax.lax.Precision.HIGHEST)
 
         def dist_body(_, d):
             shifted = jnp.roll(luma, (-d[0], -d[1]), (0, 1))
@@ -249,7 +253,7 @@ def _bm3d_stage(noisy, guide, sigma, b, n_group, s, step_phases,
                               "stages"))
 def bm3d(img: jnp.ndarray, sigma: float, b: int = 8, n_group: int = 8,
          s: int = 8, step_phases: int = 2, stages: int = 2) -> jnp.ndarray:
-    """Real two-stage BM3D, gather- and sort-free TPU formulation
+    """Real two-stage BM3D, gather- and sort-free formulation
     (reference: the `bm3d` package's bm3d_rgb, src/BM3D.py:42-54).
 
     Stage 1 (hard threshold): for each reference patch, the N most
@@ -260,8 +264,7 @@ def bm3d(img: jnp.ndarray, sigma: float, b: int = 8, n_group: int = 8,
     shrinkage spectrum come from the stage-1 estimate,
     W = C1^2/(C1^2 + sigma^2) applied to the noisy groups.
 
-    TPU mapping (no gathers, no sorts — both pathological on this
-    backend, docs/PERF_NOTES.md): block matching is the MC/SAD
+    Device mapping (no gathers, no sorts): block matching is the MC/SAD
     displacement-sweep trick (lax.scan of rolls + box sums); top-N is
     N argmin+mask passes; the group gather AND the aggregation scatter
     are the same sweep with per-block selection masks; `step_phases`^2

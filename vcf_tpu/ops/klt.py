@@ -7,8 +7,7 @@ forward `X @ W.T`, inverse `Y @ W` (:248, :290); weights stored as
 (3, D, D) float32 side info (:593-601); subband reordering reused from
 the DCT stage (:603-610).
 
-TPU-first: covariance is one (D, N) @ (N, D) matmul per channel on the
-MXU; `jnp.linalg.eigh` runs on device.  Eigenvector sign is fixed
+Device design: covariance is one (D, N) @ (N, D) matmul per channel; `jnp.linalg.eigh` runs on device.  Eigenvector sign is fixed
 deterministically (largest-|.| component made positive) so encoders are
 reproducible across runs.
 """

@@ -7,8 +7,8 @@ coding-gain regularizer (src/2D-LBT.py:105-128).  The decoder weights
 and the block mean are codestream side information
 (src/2D-LBT.py:130-136 stores them as .pth; we store float32 arrays).
 
-TPU-first: training is a jitted optax loop over all blocks of the
-image at once (two matmuls per step on the MXU); weights are
+Device design: training is a jitted optax loop over all blocks of the
+image at once (two matmuls per step); weights are
 initialized from the DCT basis, which both speeds convergence and
 makes the seedless path deterministic.  The pipeline flow reuses the
 DCT skeleton (same padding, quantizer hooks, uint8 casting).

@@ -8,7 +8,7 @@ synthesis (:210-244), separable 2D rows-then-columns (:247-305), and an
 extended padding of +B per side whose offsets ride in the shape sidecar
 (:446-476, :510-512).
 
-TPU-first: all frames of a row are transformed at once as one matmul
+Device design: all frames of a row are transformed at once as one matmul
 with the (N, 2N) windowed cosine matrix — framing is a reshape of the
 50%-overlap view built from two shifted slices; no Python loops.  With
 the sqrt(2/N) scaling both ways, overlap-add reconstruction is exact

@@ -5,7 +5,7 @@ Capability parity with the reference's IPP motion tools
 (:225-244), optional three-step fast search (:159-204), and motion
 compensation with boundary clamping (:378-395).
 
-TPU-first design: the reference parallelizes over block rows with a
+Device design: the reference parallelizes over block rows with a
 thread pool (:360-368); here the whole search is one vectorized
 program — for every displacement d in the (2S+1)^2 window, the SAD of
 *all* blocks against the shifted reference is an elementwise |a-b|
@@ -28,7 +28,8 @@ def to_luma(frame: jnp.ndarray) -> jnp.ndarray:
     """uint8 RGB (H, W, 3) -> float32 luma, BT.601 weights like
     cv2.cvtColor(..., COLOR_RGB2GRAY) used at src/IPP_DCT.py:350-352."""
     w = jnp.asarray([0.299, 0.587, 0.114], jnp.float32)
-    return jnp.einsum("hwc,c->hw", frame.astype(jnp.float32), w)
+    return jnp.einsum("hwc,c->hw", frame.astype(jnp.float32), w,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def _block_reduce_sum(x: jnp.ndarray, m: int) -> jnp.ndarray:

@@ -1,28 +1,27 @@
-"""Pallas TPU kernels for the hot codec ops.
+"""Hand-written kernels, and the one place that chooses between a kernel
+and its plain XLA version.
 
-Explicit VMEM-blocked kernels for the compute-critical paths
-(BASELINE north star: "Pallas kernels for block-transform,
-quantization, motion search, and bit-pack inner loops"):
+* rans_scan.encode_scan — the interleaved-rANS encode scan, one Pallas
+  program per block of lanes through Triton
+  (vcf_tpu/ops/pallas/rans_scan.py).  Plain version:
+  `entropy.rans._scan_grouped_xla`; both produce the same records, and
+  tests pin the kernel to it in interpret mode.
 
-* fused_dct_quantize / fused_dequantize_idct — the whole per-plane
-  transform+quantize hot loop in one kernel (vcf_tpu/ops/pallas/dct_kernel.py)
-* sad_search — full-search block motion estimation
-  (vcf_tpu/ops/pallas/sad_kernel.py)
-
-Every kernel has an XLA reference implementation in vcf_tpu/ops; the
-`CodecConfig.use_pallas` flag selects the implementation, and
-equivalence is enforced by tests (tests/test_pallas.py runs both in
-interpreter mode on CPU).
+The choice is derived from the platform and the shape, never set by a
+user flag.
 """
 
-from vcf_tpu.ops.pallas.dct_kernel import (
-    fused_dct_quantize,
-    fused_dct_quantize_any,
-    fused_dequantize_idct,
-    fused_dequantize_idct_any,
-)
-from vcf_tpu.ops.pallas.sad_kernel import sad_search
+from __future__ import annotations
 
-__all__ = ["fused_dct_quantize", "fused_dct_quantize_any",
-           "fused_dequantize_idct", "fused_dequantize_idct_any",
-           "sad_search"]
+from typing import Optional
+
+import jax
+
+
+def use_encode_kernel(s_streams: int, platform: Optional[str] = None) -> bool:
+    """True where the encode scan runs as the Triton kernel: on a GPU,
+    with a lane count that tiles into blocks of at least one warp."""
+    from vcf_tpu.ops.pallas.rans_scan import MIN_BLOCK, lane_block
+
+    platform = jax.default_backend() if platform is None else platform
+    return platform == "gpu" and lane_block(s_streams) >= MIN_BLOCK

@@ -95,8 +95,10 @@ def lloydmax_train_from_hist(
         )  # (C, V) in [0, L-1]
         w = hist  # (C, V)
         onehot = jax.nn.one_hot(assign, n_levels, dtype=jnp.float32)  # (C, V, L)
-        mass = jnp.einsum("cv,cvl->cl", w, onehot)
-        moment = jnp.einsum("cv,v,cvl->cl", w, support, onehot)
+        mass = jnp.einsum("cv,cvl->cl", w, onehot,
+                          precision=jax.lax.Precision.HIGHEST)
+        moment = jnp.einsum("cv,v,cvl->cl", w, support, onehot,
+                            precision=jax.lax.Precision.HIGHEST)
         new = jnp.where(mass > 0, moment / jnp.maximum(mass, 1e-30), levels)
         return new
 

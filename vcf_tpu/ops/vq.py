@@ -5,9 +5,9 @@ Capability parity with src/VQ.py (spatial block VQ) and src/color-VQ.py
 unseeded — the reference is nondeterministic here, SURVEY §7.3; we fix
 a seed so codestreams are reproducible).
 
-TPU-first k-means: distance computation is a single matmul per Lloyd
+Device k-means: distance computation is a single matmul per Lloyd
 iteration (``|x-c|^2 = |x|^2 - 2 x.c + |c|^2``) over all points at
-once — MXU work — and centroid update is a segment-sum via one-hot
+once — matmul work — and centroid update is a segment-sum via one-hot
 matmul.  k-means++ seeding uses jax.random with a fixed key.
 
 Centroids are energy-sorted with a label remap like the reference

@@ -1,7 +1,7 @@
-"""Data-parallel execution over a TPU device mesh.
+"""Data-parallel execution over a device mesh.
 
 The reference is single-process (SURVEY §2.4); parallelism here is new
-TPU-native design: frames / tiles / GOPs are the independent units,
+device-native design: frames / tiles / GOPs are the independent units,
 sharded over a `jax.sharding.Mesh`, side information (codebooks,
 levels, tables) replicated, and variable-length compressed streams
 gathered on the host in frame order.

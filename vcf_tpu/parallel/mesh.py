@@ -22,21 +22,13 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map  # jax >= 0.7 name
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 from vcf_tpu.config import CodecConfig
 from vcf_tpu.ops import color as color_ops
 from vcf_tpu.ops import dct as dct_ops
 from vcf_tpu.ops import quantize as q_ops
-
-
-#: test hook: force the Pallas fused branches on in interpret mode so
-#: the CPU suite can pin their wiring (tests/test_parallel.py)
-_FORCE_FUSED_INTERPRET = False
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "data") -> Mesh:
@@ -94,98 +86,19 @@ class BatchCodec:
             self._build_lloydmax(cfg, b, fwd, inv, axis)
             return
 
-        # Pallas fused kernel path: requires TPU, deadzone, and 32-row
-        # tile alignment (ops/pallas/dct_kernel.py).  Perceptual tables
-        # fold into the kernel as VMEM constants (r5).
-        self._pallas_ok = (
-            cfg.use_pallas
-            and cfg.quantizer == "deadzone"
-            and (jax.devices()[0].platform not in ("cpu",)
-                 or _FORCE_FUSED_INTERPRET)
-        )
-        interp = bool(_FORCE_FUSED_INTERPRET)
-
-        # color-fused fast path (r5): the 3x3 color matrix rides inside
-        # the DCT kernels (u8 -> u8, no f32 color tensor in HBM) for the
-        # linear color transforms on kernel-native shapes
-        cmats = {
-            "ycocg": (color_ops.YCOCG_FWD, color_ops.YCOCG_INV),
-            "ycrcb": (color_ops.YCRCB_FWD, color_ops.YCRCB_INV),
-            "cdct": (color_ops.CDCT_FWD, color_ops.CDCT_INV),
-        }
-        cfuse = cmats.get(cname) if not cfg.perceptual else None
-        mf_t = mi_t = None
-        if cfuse is not None:
-            from vcf_tpu.ops.pallas.dct_kernel import static_mat
-
-            mf_t, mi_t = static_mat(cfuse[0]), static_mat(cfuse[1])
-
         def encode_one(img_u8):
-            from vcf_tpu.ops.pallas import dct_kernel as _dk
-
-            if (self._pallas_ok and cfuse is not None
-                    and img_u8.shape[2] == 3
-                    and _dk.supports(*img_u8.shape[:2])):
-                from vcf_tpu.ops.pallas.dct_kernel import fused_cdct_quantize
-
-                k_u8 = fused_cdct_quantize(
-                    img_u8.transpose(2, 0, 1), mf_t, b=b, qss=cfg.qss,
-                    offset=soff, interpret=interp)
-                k_img = k_u8.transpose(1, 2, 0)
-                if cfg.subbands:
-                    k_img = dct_ops.to_subbands(k_img, b)
-                return k_img
             x = img_u8.astype(jnp.float32) - soff
             ct = fwd(x)
-            if self._pallas_ok and _dk.supports_padded(*ct.shape[:2], b):
-                from vcf_tpu.ops.pallas import fused_dct_quantize_any
-
-                planes = ct.transpose(2, 0, 1)  # planar for lane efficiency
-                k_u8 = fused_dct_quantize_any(planes, b=b, qss=cfg.qss,
-                                              offset=soff,
-                                              perceptual=cfg.perceptual)
-                k_img = k_u8.transpose(1, 2, 0)
-                if cfg.subbands:
-                    # pure permutation of stored indexes — commutes with
-                    # quantization, identical to the XLA path's output
-                    k_img = dct_ops.to_subbands(k_img, b)
-                return k_img
             coeff = dct_ops.analyze(ct, b)
             if cfg.perceptual:
                 coeff = dct_ops.perceptual_scale(coeff, b)
             if cfg.subbands:
                 coeff = dct_ops.to_subbands(coeff, b)
             k = q_ops.deadzone_quantize(coeff, cfg.qss)
-            return (k + soff).astype(jnp.uint8)
+            # saturate, not wrap, like pipeline.Codec._store_indexes
+            return jnp.clip(k + soff, 0, 255).astype(jnp.uint8)
 
         def decode_one(k_u8):
-            from vcf_tpu.ops.pallas import dct_kernel as _dk
-
-            if (self._pallas_ok and cfuse is not None
-                    and k_u8.shape[2] == 3
-                    and _dk.supports(*k_u8.shape[:2])):
-                from vcf_tpu.ops.pallas.dct_kernel import (
-                    fused_dequantize_cdct)
-
-                k_img = k_u8
-                if cfg.subbands:
-                    k_img = dct_ops.from_subbands(k_img, b)
-                pix = fused_dequantize_cdct(
-                    k_img.transpose(2, 0, 1), mi_t, b=b, qss=cfg.qss,
-                    offset=soff, interpret=interp)
-                return pix.transpose(1, 2, 0)
-            if self._pallas_ok and _dk.supports_padded(*k_u8.shape[:2], b):
-                from vcf_tpu.ops.pallas import fused_dequantize_idct_any
-
-                k_img = k_u8
-                if cfg.subbands:
-                    k_img = dct_ops.from_subbands(k_img, b)
-                planes = k_img.transpose(2, 0, 1)
-                ct = fused_dequantize_idct_any(planes, b=b, qss=cfg.qss,
-                                               offset=soff,
-                                               perceptual=cfg.perceptual)
-                y = inv(ct.transpose(1, 2, 0)) + soff
-                return jnp.clip(jnp.round(y), 0, 255).astype(jnp.uint8)
             k = k_u8.astype(jnp.int32) - soff
             coeff = q_ops.deadzone_dequantize(k, cfg.qss)
             if cfg.subbands:
@@ -197,27 +110,14 @@ class BatchCodec:
             return jnp.clip(jnp.round(y), 0, 255).astype(jnp.uint8)
 
         spec = P(axis)
-        # check_vma=False: pallas_call outputs carry no varying-axes
-        # metadata, so the vma check rejects the fused-kernel path
-        # inside the manual region (per-shard work has no collectives)
 
         @functools.partial(
-            shard_map,
-            mesh=self.mesh,
-            in_specs=(spec,),
-            out_specs=spec,
-            check_vma=False,
-            )
+            shard_map, mesh=self.mesh, in_specs=(spec,), out_specs=spec)
         def encode_shard(frames):
             return jax.vmap(encode_one)(frames)
 
         @functools.partial(
-            shard_map,
-            mesh=self.mesh,
-            in_specs=(spec,),
-            out_specs=spec,
-            check_vma=False,
-            )
+            shard_map, mesh=self.mesh, in_specs=(spec,), out_specs=spec)
         def decode_shard(planes):
             return jax.vmap(decode_one)(planes)
 

@@ -7,7 +7,7 @@ per-frame transform call is commented out at src/III.py:96-104 — the
 *intended* behavior, implemented here, codes each frame through the
 2D pipeline).
 
-TPU-first: frames are embarrassingly parallel (SURVEY §5).  When the
+Device design: frames are embarrassingly parallel (SURVEY §5).  When the
 still config matches the fused batch path (dct + deadzone), all frames
 are coded in one sharded device dispatch via `parallel.BatchCodec`,
 producing per-frame segments byte-identical to the per-frame `Codec`
@@ -28,7 +28,7 @@ from vcf_tpu.pipeline import Codec
 #: the whole clip's index planes are coded in ONE batched call (a
 #: single "clip.*" segment group) instead of a per-frame host loop
 #: (VERDICT r2 weak item 3; reference role src/III.py:96-104 writes
-#: per-frame files, a host-filesystem idiom with no TPU benefit).
+#: per-frame files, a host-filesystem idiom with no device benefit).
 BATCHED_ENTROPY = ("rans", "grans", "srans", "cgrans")
 
 

@@ -9,7 +9,7 @@ intra-coded, the rest predicted from the *reconstructed* previous frame
 rate model and lambda `-R` (:265-342, :441-544); MV field + mode maps +
 per-frame metadata in the codestream (:663-687).
 
-TPU-first redesign of the closed loop (SURVEY §7.3): the reference
+Device redesign of the closed loop (SURVEY §7.3): the reference
 round-trips every frame through temp PNG files and the full entropy
 stack (encode_decode_proxy, :595-626); here the in-loop reconstruction
 is transform -> quantize -> dequantize -> inverse entirely on device —
@@ -78,90 +78,24 @@ class IPPCodec:
             gops, NamedSharding(self.mesh, P(self.mesh.axis_names[0]))
         ), g
 
-    def _make_search(self, h: int, w: int):
-        """Pick the motion-search implementation for (h, w) luma frames:
-        three-step when requested; otherwise the Pallas full-search SAD
-        kernel (ops/pallas/sad_kernel.py, reference role
-        IPP_DCT.py:225-244,360-368) when `use_pallas` is set, the
-        backend is TPU, and the whole frame + padded reference + pooling
-        matrices fit VMEM (~16 MB/core); else the lax full search."""
+    def _search(self, ref_l, cur_l):
+        """Block motion search on luma: three-step when requested, else
+        the full search (reference role IPP_DCT.py:225-244,360-368)."""
         m, s = self.vcfg.me_block, self.vcfg.search_range
-
-        def tagged(kind, fn):
-            fn.kind = kind
-            return fn
-
         if self.vcfg.fast_search:
-            return tagged("three_step",
-                          lambda r, c: motion.three_step_search(r, c, m, s))
-        n_disp = (2 * s + 1) ** 2
-        vmem_bytes = 4 * (
-            2 * h * w + (h + 2 * s) * (w + 2 * s)
-            + (h // m) * h + w * (w // m) + n_disp * (h // m) * (w // m)
-        )
-        if (self.ccfg.use_pallas and h % m == 0 and w % m == 0
-                and jax.default_backend() == "tpu"):
-            if vmem_bytes < 12 * 1024 * 1024:
-                from vcf_tpu.ops.pallas.sad_kernel import sad_search
-
-                return tagged("pallas_sad",
-                              lambda r, c: sad_search(r, c, m, s))
-            # 1080p-class frames: row-tiled kernel (ref slab + halo per
-            # tile in VMEM; one HBM read per tile, displacements inner)
-            def slab_bytes(t):
-                # cur + ref f32 slabs per tile, lane-padded width
-                return 4 * 2 * (t + 2 * s + 8) * (-(-(w + 2 * s) // 128) * 128)
-
-            th = h
-            while (th % 2 == 0 and (th // 2) % m == 0
-                   and slab_bytes(th) > 8 * 1024 * 1024):
-                th //= 2
-            # final fit check: the halving loop stops on divisibility, so
-            # odd-tile shapes (e.g. 2160 with m=16 -> th=270) can leave a
-            # slab near the 16 MB scoped-VMEM limit once in-kernel
-            # temporaries are added — fall back to lax_full instead of
-            # launching an oversized kernel (ADVICE r3)
-            if (th % m == 0 and h % th == 0
-                    and slab_bytes(th) <= 10 * 1024 * 1024):
-                from vcf_tpu.ops.pallas.sad_kernel import sad_search_tiled
-
-                return tagged(
-                    "pallas_sad_tiled",
-                    lambda r, c: sad_search_tiled(r, c, m, s, tile_h=th))
-        return tagged("lax_full", lambda r, c: motion.full_search(r, c, m, s))
+            return motion.three_step_search(ref_l, cur_l, m, s)
+        return motion.full_search(ref_l, cur_l, m, s)
 
     def _build(self):
         cfg = self.ccfg
-        # always defined so callers can probe for the planar grid path
-        self._gop_encode_grid_batch = None
-        self._gop_decode_grid_batch = None
         if not self.fused:
             return  # generic path drives ops.motion + the still Codec
         b, qss = cfg.block_size, cfg.qss
         fwd, inv = color_ops.get(cfg.color if cfg.color != "ycocg_r" else "ycocg")
 
-        def _fused_ok(h_, w_):
-            if not cfg.use_pallas or jax.default_backend() != "tpu":
-                return False
-            from vcf_tpu.ops.pallas import dct_kernel as _dk
-
-            return _dk.supports_padded(h_, w_, cfg.block_size)
-
         def enc(img_f32):
             x = img_f32 - 128.0
             ct = fwd(x)
-            # fused Pallas DCT+quantize when the shape tiles: the
-            # closed-loop transforms are the GOP encode's dominant cost
-            # at 1080p (measured 48 ms/8 frames unfused vs ~14 fused)
-            if _fused_ok(*img_f32.shape[:2]):
-                from vcf_tpu.ops.pallas import fused_dct_quantize_any
-
-                k = fused_dct_quantize_any(
-                    ct.transpose(2, 0, 1), b=b, qss=qss, offset=128
-                ).transpose(1, 2, 0)
-                if cfg.subbands:
-                    k = dct_ops.to_subbands(k, b)
-                return k
             coeff = dct_ops.analyze(ct, b)
             if cfg.subbands:
                 coeff = dct_ops.to_subbands(coeff, b)
@@ -170,17 +104,6 @@ class IPPCodec:
             return jnp.clip(k + 128, 0, 255).astype(jnp.uint8)
 
         def dec(k_u8):
-            if _fused_ok(*k_u8.shape[:2]):
-                from vcf_tpu.ops.pallas import fused_dequantize_idct_any
-
-                k_img = k_u8
-                if cfg.subbands:
-                    k_img = dct_ops.from_subbands(k_img, b)
-                ct = fused_dequantize_idct_any(
-                    k_img.transpose(2, 0, 1), b=b, qss=qss, offset=128
-                ).transpose(1, 2, 0)
-                y = inv(ct) + 128.0
-                return jnp.clip(jnp.round(y), 0.0, 255.0)
             k = k_u8.astype(jnp.int32) - 128
             coeff = q_ops.deadzone_dequantize(k, qss)
             if cfg.subbands:
@@ -195,20 +118,8 @@ class IPPCodec:
 
         m, s = self.vcfg.me_block, self.vcfg.search_range
 
-        # Motion compensation: the XLA vmapped-dynamic-slice gather runs
-        # near-scalar on this backend (~9 ms per 1080p frame, ~60 of the
-        # 81 ms honest GOP encode, r4 probe 21); the Pallas
-        # mask-accumulate kernel is bit-identical and ~7x faster.
-        def _make_compensate(h_, w_):
-            if cfg.use_pallas and jax.default_backend() == "tpu":
-                from vcf_tpu.ops.pallas import mc_kernel
-
-                if mc_kernel.supports(h_, w_, m, s):
-                    return lambda ref, mv: mc_kernel.mc_apply(ref, mv, m, s)
-            return lambda ref, mv: motion.compensate(ref, mv, m,
-                                                     pad=max(s, 8))
-
-        self._make_compensate = _make_compensate
+        def compensate(ref, mv):
+            return motion.compensate(ref, mv, m, pad=max(s, 8))
 
         def inter_step(ref_recon, frame_u8):
             """P-frame: ME on luma + MC residual coding.
@@ -216,8 +127,8 @@ class IPPCodec:
             cur = frame_u8.astype(jnp.float32)
             ref_l = motion.to_luma(ref_recon.astype(jnp.uint8))
             cur_l = motion.to_luma(frame_u8)
-            mv, _ = self._make_search(*cur_l.shape)(ref_l, cur_l)
-            pred = self._make_compensate(*cur_l.shape)(ref_recon, mv)
+            mv, _ = self._search(ref_l, cur_l)
+            pred = compensate(ref_recon, mv)
             residual = jnp.clip(cur - pred + 128.0, 0.0, 255.0)
             k = enc(residual)
             res_rec = dec(k) - 128.0
@@ -242,8 +153,8 @@ class IPPCodec:
                 cur = frame.astype(jnp.float32)
                 ref_l = motion.to_luma(jnp.clip(jnp.round(ref), 0, 255).astype(jnp.uint8))
                 cur_l = motion.to_luma(frame)
-                mv, _ = self._make_search(*cur_l.shape)(ref_l, cur_l)
-                pred = self._make_compensate(*cur_l.shape)(ref, mv)
+                mv, _ = self._search(ref_l, cur_l)
+                pred = compensate(ref, mv)
                 residual = jnp.clip(cur - pred + 128.0, 0.0, 255.0)
                 k = enc(residual)
                 recon = jnp.clip(pred + dec(k) - 128.0, 0.0, 255.0)
@@ -258,7 +169,7 @@ class IPPCodec:
 
             def step(ref, inp):
                 k, mv = inp
-                pred = self._make_compensate(*ref.shape[:2])(ref, mv)
+                pred = compensate(ref, mv)
                 recon = jnp.clip(pred + dec(k) - 128.0, 0.0, 255.0)
                 return recon, recon
 
@@ -284,8 +195,8 @@ class IPPCodec:
                 ref_u8 = jnp.clip(jnp.round(ref), 0, 255).astype(jnp.uint8)
                 ref_l = motion.to_luma(ref_u8)
                 cur_l = motion.to_luma(frame)
-                mv, _ = self._make_search(*cur_l.shape)(ref_l, cur_l)
-                pred = self._make_compensate(*cur_l.shape)(ref, mv)
+                mv, _ = self._search(ref_l, cur_l)
+                pred = compensate(ref, mv)
                 pred_l = motion.to_luma(
                     jnp.clip(jnp.round(pred), 0, 255).astype(jnp.uint8))
                 inter = rdo_modes(cur_l, pred_l, lam)        # (nby, nbx)
@@ -308,7 +219,7 @@ class IPPCodec:
 
             def step(ref, inp):
                 k, mv, inter = inp
-                pred = self._make_compensate(*ref.shape[:2])(ref, mv)
+                pred = compensate(ref, mv)
                 rec_mixed = dec(k)
                 mask = jnp.repeat(jnp.repeat(inter, m, 0), m, 1)[..., None]
                 recon = jnp.where(
@@ -354,108 +265,6 @@ class IPPCodec:
             d_p, r_p = block_cost(res_b)
             inter = (d_p + lam * r_p) <= (d_i + lam * r_i)
             return inter.reshape(nby, nbx)
-
-        # ------------------------------------------------------------------
-        # PLANAR + SUBBAND-GRID closed loop (r4 device path): pixels stay
-        # (3, H, W) through the whole scan (no byte-granular layout hops
-        # around the Pallas kernels, which cost ~1-2 ms per P-frame at
-        # 1080p), index planes come out in the grid-tile layout that
-        # `entropy.rans.grid_lanes` consumes with plain reshapes, and MC
-        # runs the planar Pallas kernel.  Bit-identical reconstruction
-        # to the frame-layout path (same HIGHEST color dot, same kron
-        # matmuls with permuted constants, same MC law) — pinned by
-        # tests/test_video.py.  ycocg + deadzone only.
-        # ------------------------------------------------------------------
-        if cfg.color == "ycocg" and cfg.quantizer == "deadzone":
-            enc_g, dec_g = self._build_planar_gop()
-            self._gop_encode_grid_batch = jax.jit(jax.vmap(enc_g))
-            self._gop_decode_grid_batch = jax.jit(jax.vmap(dec_g))
-        else:
-            self._gop_encode_grid_batch = None
-            self._gop_decode_grid_batch = None
-
-    def _build_planar_gop(self, interpret: bool = False):
-        """(gop_encode_planar, gop_decode_planar) closures.  interpret
-        runs the Pallas kernels in interpret mode (CPU parity tests)."""
-        cfg = self.ccfg
-        b, qss = cfg.block_size, cfg.qss
-        m, s = self.vcfg.me_block, self.vcfg.search_range
-        from vcf_tpu.ops.pallas import mc_kernel
-        from vcf_tpu.ops.pallas.dct_kernel import (
-            fused_cdct_quantize, fused_dequantize_cdct)
-
-        from vcf_tpu.ops.pallas.dct_kernel import static_mat
-
-        mf_t = static_mat(color_ops.YCOCG_FWD)
-        mi_t = static_mat(color_ops.YCOCG_INV)
-        lw = np.asarray([0.299, 0.587, 0.114], np.float32)
-
-        # color-fused kernels (r5): pixels/residuals in the closed loop
-        # are exact integers in f32 (MC copies rounded pixels), so the
-        # u8 cast at the kernel boundary is lossless and the per-step
-        # color einsums (2 x ~25 MB f32 HBM round trips per frame)
-        # disappear into the DCT kernels
-
-        def enc_p(img_p):                  # (3, H, W) f32 integer pixels
-            return fused_cdct_quantize(
-                img_p.astype(jnp.uint8), mf_t, b=b, qss=qss, offset=128,
-                grid_layout=True, interpret=interpret)
-
-        def dec_p(k):                      # (3, H, W) u8 grid layout
-            return fused_dequantize_cdct(
-                k, mi_t, b=b, qss=qss, offset=128, grid_layout=True,
-                interpret=interpret).astype(jnp.float32)
-
-        def luma_p(fr):                    # (3, H, W) f32 0..255
-            return jnp.einsum("chw,c->hw", fr, jnp.asarray(lw))
-
-        def compensate_p(ref, mv):
-            if (not interpret and cfg.use_pallas
-                    and jax.default_backend() == "tpu"
-                    and mc_kernel.supports(ref.shape[1], ref.shape[2],
-                                           m, s)):
-                return mc_kernel.mc_apply_planar(ref, mv, m, s)
-            if interpret:
-                return mc_kernel.mc_apply_planar(ref, mv, m, s,
-                                                 interpret=True)
-            return motion.compensate(
-                ref.transpose(1, 2, 0), mv, m, pad=max(s, 8)
-            ).transpose(2, 0, 1)
-
-        def gop_encode_planar(gop_frames):  # (T, H, W, 3) u8
-            fp = gop_frames.transpose(0, 3, 1, 2).astype(jnp.float32)
-            k0 = enc_p(fp[0])
-            recon0 = dec_p(k0)
-
-            def step(ref, frame_p):
-                cur = frame_p
-                ref_l = luma_p(jnp.round(ref))
-                cur_l = luma_p(frame_p)
-                mv, _ = self._make_search(*cur_l.shape)(ref_l, cur_l)
-                pred = compensate_p(ref, mv)
-                residual = jnp.clip(cur - pred + 128.0, 0.0, 255.0)
-                k = enc_p(residual)
-                recon = jnp.clip(pred + dec_p(k) - 128.0, 0.0, 255.0)
-                return recon, (k, mv)
-
-            _, (ks, mvs) = jax.lax.scan(step, recon0, fp[1:])
-            planes = jnp.concatenate([k0[None], ks], axis=0)
-            return planes, mvs             # planes (T, 3, H, W) u8 grid
-
-        def gop_decode_planar(planes, mvs):
-            recon0 = dec_p(planes[0])
-
-            def step(ref, inp):
-                k, mv = inp
-                pred = compensate_p(ref, mv)
-                recon = jnp.clip(pred + dec_p(k) - 128.0, 0.0, 255.0)
-                return recon, recon
-
-            _, recs = jax.lax.scan(step, recon0, (planes[1:], mvs))
-            return jnp.concatenate([recon0[None], recs], axis=0)
-
-        return gop_encode_planar, gop_decode_planar
-
 
     # ------------------------------------------------------------------
     def encode(self, frames: np.ndarray) -> CodeStream:
@@ -614,8 +423,7 @@ class IPPCodec:
                 cur = frames[i].astype(np.float32)
                 ref_l = motion.to_luma(jnp.asarray(ref))
                 cur_l = motion.to_luma(jnp.asarray(frames[i]))
-                mv, _ = self._make_search(
-                    int(cur_l.shape[0]), int(cur_l.shape[1]))(ref_l, cur_l)
+                mv, _ = self._search(ref_l, cur_l)
                 pred = np.asarray(
                     motion.compensate(jnp.asarray(ref, jnp.float32), mv, m,
                                       pad=max(s, 8))
